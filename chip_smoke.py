@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line (every failure raises, so the exit code is
+Phases, each printing lines (every failure raises, so the exit code is
 non-zero and no result line is printed):
   1. environment: a CUDA device of capability (9, 0), its name and power
      limit as nvidia-smi reports them;
   2. build: the nvcc kernel library and the native FASTQ parser, timed;
   3. each CUDA kernel against its plain PyTorch version on the card, on
-     seeded numpy inputs at the main path's shapes plus hard cases —
-     exact equality (all outputs are integers) — with both times;
-  4. end to end: the seed-42 bench FASTQ (bench.py, 20,000 reads) counted
-     at k=14 with the CLI's defaults; totals, the full sorted export
-     against an independent numpy count, point queries, the kernels'
-     launch counts on that run, and a second batch geometry that must give
-     the identical export;
+     seeded inputs at the main paths' shapes plus hard cases — exact
+     equality (all outputs are integers) — with the kernel's, the plain
+     version's and a yardstick PyTorch call's times, and the kernel's
+     bytes bound at the card's 3.35 TB/s;
+  4. end to end, sort backend: the seed-42 bench FASTQ (bench.py, 20,000
+     reads) counted at k=14 with the CLI's defaults; totals, the full
+     sorted export against an independent numpy count, point queries, the
+     kernels' launch counts on that run, and a second batch geometry that
+     must give the identical export;
+  5. end to end, table backend: the same file at k=14, l=26 (totals,
+     spill, fill factor, export and queries against the numpy count,
+     launch counts, the round widths, cold and warm times); at k=31, l=25
+     against a numpy count at k=31; and a small file counted on the card
+     and on the CPU, whose table states must be identical word for word;
 then the kernels' JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Builds and data go to
 tsxcount_tpu_torch/build/ (gitignored).  No JAX is imported.
@@ -39,6 +46,12 @@ import bench  # noqa: E402  (module scope imports numpy only)
 from tsxcount_tpu_torch import KmerCounter, _build  # noqa: E402
 from tsxcount_tpu_torch.core.store import CountStore  # noqa: E402
 from tsxcount_tpu_torch.io import native  # noqa: E402
+from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    apply_sorted_unique,
+    apply_sorted_unique_plain,
+    gather_sorted,
+    gather_sorted_plain,
+)
 from tsxcount_tpu_torch.ops.compact import (  # noqa: E402
     compact_flagged,
     compact_flagged_plain,
@@ -54,6 +67,9 @@ from tsxcount_tpu_torch.ops.merge_dedupe import (  # noqa: E402
 from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
 
 K = 14
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device-memory rate (data sheet)
+SORT_KERNELS = ("compact_flagged", "merge_sorted", "merge_dedupe_sorted")
+TABLE_KERNELS = ("gather_sorted", "apply_sorted_unique", "compact_flagged")
 TOTAL_KMERS = 18_750_197     # seed-42 bench FASTQ, k=14 windows
 DISTINCT_KMERS = 14_479_762  # and distinct k-mers
 INV14 = 1 << 28              # k=14 invalid constant (flag above 28 key bits)
@@ -64,6 +80,10 @@ KERNELS = {
                      "tsxcount_tpu/ops/pallas_merge.py:140"),
     "merge_dedupe_sorted": ("tsxcount_tpu_torch/csrc/merge_dedupe.cu",
                             "tsxcount_tpu/ops/pallas_merge_dedupe.py:83"),
+    "apply_sorted_unique": ("tsxcount_tpu_torch/csrc/apply.cu",
+                            "tsxcount_tpu/ops/pallas_apply.py:98"),
+    "gather_sorted": ("tsxcount_tpu_torch/csrc/apply.cu",
+                      "tsxcount_tpu/ops/pallas_apply.py:249"),
 }
 DEV = torch.device("cuda")
 rng = np.random.default_rng(1234)
@@ -81,17 +101,24 @@ def gpu(a: np.ndarray) -> torch.Tensor:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device time of fn() over reps calls, after one warm-up."""
+    """Median device time of fn() over reps calls, each between its own
+    pair of CUDA events, after one warm-up (the median keeps one slow call
+    out of the figure)."""
     fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for t0, t1 in events:
+        t0.record()
         fn()
-    t1.record()
+        t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return float(np.median([t0.elapsed_time(t1) for t0, t1 in events]))
+
+
+def bytes_ms(n_bytes: int) -> float:
+    """Least time to move n_bytes at the card's memory rate."""
+    return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
 def max_err(got, want, rows=None) -> int:
@@ -173,8 +200,13 @@ def check_compact(results: dict) -> None:
         if case == "random":  # the main path's columns: operand + position
             ms = cuda_ms(lambda: compact_flagged(flag, cols[:2]))
             plain_ms = cuda_ms(lambda: compact_flagged_plain(flag, cols[:2]))
+            mask, stacked = flag != 0, torch.stack(cols[:2])
+            library_ms = cuda_ms(lambda: stacked[:, mask])
+            # flags and both columns read, the flagged rows written
+            bound = bytes_ms(n * 4 + 2 * n * 4 + rows * 2 * 4)
     results["compact_flagged"] = dict(max_abs_err=worst, ms=ms,
-                                      plain_ms=plain_ms)
+                                      plain_ms=plain_ms,
+                                      library_ms=library_ms, bound_ms=bound)
 
 
 def check_merge(results: dict) -> None:
@@ -202,8 +234,13 @@ def check_merge(results: dict) -> None:
         if case == "random":
             ms = cuda_ms(lambda: merge_sorted(a_cols, b_cols))
             plain_ms = cuda_ms(lambda: merge_sorted_plain(a_cols, b_cols))
+            keys = torch.cat([a_cols[0], b_cols[0]])
+            library_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
+            # key + payload of both runs read, the merged rows written
+            bound = bytes_ms(2 * (2 * size) * 2 * 4)
     results["merge_sorted"] = dict(max_abs_err=worst, ms=ms,
-                                   plain_ms=plain_ms)
+                                   plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound)
 
 
 def dedupe_run(n: int, n_keys: int, hi: int, n_invalid: int, inv_min: int,
@@ -264,9 +301,15 @@ def check_merge_dedupe(results: dict) -> None:
             ms = cuda_ms(lambda: merge_dedupe_sorted(a, b, 1, INV14))
             plain_ms = cuda_ms(
                 lambda: merge_dedupe_sorted_plain(a, b, 1, INV14))
+            # (int32 key, int64 count) rows of both runs read, one row per
+            # run written
+            bound = bytes_ms((a[0].numel() + b[0].numel()) * 12
+                             + int(w_runs) * 12)
     worst = max(worst, check_store_junk_tail())
+    # no single PyTorch call merges, dedupes and sums: library_ms is null
     results["merge_dedupe_sorted"] = dict(max_abs_err=worst, ms=ms,
-                                          plain_ms=plain_ms)
+                                          plain_ms=plain_ms,
+                                          library_ms=None, bound_ms=bound)
 
 
 def check_store_junk_tail() -> int:
@@ -318,6 +361,109 @@ def check_store_junk_tail() -> int:
     return err
 
 
+S_COL = 1 << 26      # one column region of the k=14, l=26 table
+W_ROUND = 1 << 24    # round-0 width of a 2^20-word batch (P = 16 * 2^20)
+N_ACTIVE = 12 << 20  # rows of that round with a k-mer (distinct per batch)
+
+
+def round_dst(n_active: int, width: int, s: int, n_slots: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dstg, dsta) of a table round: n_active rows probe uniform slots of
+    [0, s) (or of n_slots of them), sorted; the rest are inactive (1 << 30).
+    dstg reads every active row's slot; dsta updates each run's last row,
+    as a round into an empty table resolves every run at its end."""
+    slots = rng.integers(0, s, n_active) if n_slots is None else (
+        rng.integers(0, s, n_slots)[rng.integers(0, n_slots,
+                                                           n_active)])
+    pos = torch.sort(gpu(slots.astype(np.int64))).values
+    end = torch.ones_like(pos, dtype=torch.bool)
+    end[:-1] = pos[1:] != pos[:-1]
+    dead = torch.full((width - n_active,), 1 << 30, dtype=torch.int64,
+                      device=DEV)
+    dstg = torch.cat([2 * pos + 1, dead])
+    dsta = torch.cat([torch.where(end, 2 * pos + 1, 2 * pos), dead])
+    return dstg.to(torch.int32), dsta.to(torch.int32)
+
+
+def live_addr(dst2: torch.Tensor) -> torch.Tensor:
+    return (dst2[(dst2 & 1) == 1] >> 1).to(torch.int64)
+
+
+def apply_cases() -> dict:
+    """name -> (dstg, dsta): the main round and the hard cases."""
+    s = S_COL
+    ar = torch.arange(s, dtype=torch.int32, device=DEV)
+    edges = torch.cat([
+        torch.tensor([1], dtype=torch.int32, device=DEV),
+        2 * torch.arange(1, s, 997, dtype=torch.int32, device=DEV),
+        torch.tensor([2 * s - 1], dtype=torch.int32, device=DEV),
+        torch.full((1 << 20,), 1 << 30, dtype=torch.int32, device=DEV)])
+    dead = torch.sort(2 * gpu(rng.integers(0, s, W_ROUND).astype(np.int32)))
+    return {
+        "main": round_dst(N_ACTIVE, W_ROUND, s),
+        "all_dead": (dead.values, dead.values),
+        "dense": (2 * ar + 1, 2 * ar + 1),
+        "first_and_last_word": (edges, edges),
+        "dead_tail_only": round_dst(0, 1 << 20, s),
+        "long_runs": round_dst(N_ACTIVE, W_ROUND, s, n_slots=4096),
+    }
+
+
+def check_apply_kernels(results: dict) -> None:
+    col = gpu(rng.integers(0, 2**32, S_COL, dtype=np.uint32))
+    worst_g = worst_a = 0
+    for case, (dstg, dsta) in apply_cases().items():
+        g = gather_sorted(col, dstg)
+        w = gather_sorted_plain(col, dstg)
+        err_g = max_err(g, w)
+        val = gpu(rng.integers(0, 2**32, dsta.numel(), dtype=np.uint32))
+        got = apply_sorted_unique(col.clone(), dsta, val)
+        want = apply_sorted_unique_plain(col.clone(), dsta, val)
+        err_a = max_err(got, want)
+        phase("kernel", name="gather/apply", case=case, elements=dstg.numel(),
+              live_gather=int((dstg & 1).sum()),
+              live_apply=int((dsta & 1).sum()),
+              max_abs_err_gather=err_g, max_abs_err_apply=err_a)
+        worst_g, worst_a = max(worst_g, err_g), max(worst_a, err_a)
+    # adds that wrap past 2^32: slot words and values both >= 2^31
+    dstg, dsta = round_dst(N_ACTIVE, W_ROUND, S_COL)
+    big = gpu(rng.integers(2**31, 2**32, S_COL, dtype=np.uint32))
+    val = gpu(rng.integers(2**31, 2**32, W_ROUND, dtype=np.uint32))
+    err = max_err(apply_sorted_unique(big.clone(), dsta, val),
+                  apply_sorted_unique_plain(big.clone(), dsta, val))
+    phase("kernel", name="apply_sorted_unique", case="wrap_past_2^32",
+          elements=W_ROUND, max_abs_err=err)
+    worst_a = max(worst_a, err)
+
+    # times at the main round's shape
+    live_g = live_addr(dstg)
+    words_g = torch.unique_consecutive(live_g).numel()
+    idx_g = torch.where((dstg & 1) == 1, dstg >> 1, 0).to(torch.int64)
+    results["gather_sorted"] = dict(
+        max_abs_err=worst_g,
+        ms=cuda_ms(lambda: gather_sorted(col, dstg)),
+        plain_ms=cuda_ms(lambda: gather_sorted_plain(col, dstg)),
+        library_ms=cuda_ms(lambda: torch.index_select(col, 0, idx_g)),
+        # dst2 read, out written, each distinct live slot word read once
+        bound_ms=bytes_ms(dstg.numel() * 8 + words_g * 4))
+    live_a = (dsta & 1) == 1
+    idx_a, val_a = live_addr(dsta), val[live_a]
+    scratch = col.clone()
+    results["apply_sorted_unique"] = dict(
+        max_abs_err=worst_a,
+        ms=cuda_ms(lambda: apply_sorted_unique(scratch, dsta, val)),
+        plain_ms=cuda_ms(lambda: apply_sorted_unique_plain(scratch, dsta,
+                                                           val)),
+        library_ms=cuda_ms(lambda: scratch.index_add_(0, idx_a, val_a)),
+        # dst2 read; per live element its value read and its slot word
+        # read and written
+        bound_ms=bytes_ms(dsta.numel() * 4 + idx_a.numel() * 12))
+    phase("kernel_shape", name="gather_sorted/apply_sorted_unique",
+          column_words=S_COL, elements=W_ROUND,
+          live_gather=live_g.numel(), words_gather=words_g,
+          live_apply=idx_a.numel())
+
+
 # --- phase 4 ----------------------------------------------------------------
 
 def host_count(path: Path, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -343,8 +489,34 @@ def host_count(path: Path, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def export(counter: KmerCounter) -> tuple[np.ndarray, np.ndarray]:
-    keys, counts, _ = counter.store.to_host(counter.state)
-    return keys[:, 0].astype(np.int64), counts
+    """(int64 keys ascending, counts) of the counter's full export."""
+    if counter.backend == "sort":
+        keys, counts, _ = counter.store.to_host(counter.state)
+    else:  # slot order: sort by key
+        keys, counts, _ = counter.table.to_host(counter.state)
+    keys = keys.astype(np.int64)
+    flat = keys[:, 0] | (keys[:, 1] << 32 if keys.shape[1] > 1 else 0)
+    order = np.argsort(flat, kind="stable")
+    return flat[order], np.asarray(counts, np.int64)[order]
+
+
+def check_queries(counter: KmerCounter, want_keys, want_counts) -> None:
+    """Point queries, half present and half random (mostly absent),
+    against the host count."""
+    k = counter.spec.k
+    present = want_keys[rng.integers(0, len(want_keys), 2048)]
+    rand = rng.integers(0, 4**k, 2048, dtype=np.int64)
+    q = np.concatenate([present, rand])
+    idx = np.clip(np.searchsorted(want_keys, q), 0, len(want_keys) - 1)
+    want_q = np.where(want_keys[idx] == q, want_counts[idx], 0)
+    strings = ["".join("ACGT"[(int(v) >> (2 * i)) & 3] for i in range(k))
+               for v in q]
+    got_q = np.asarray(counter.get_counts(strings))
+    if not np.array_equal(got_q, want_q):
+        raise AssertionError(f"{counter.backend} get_counts differs from "
+                             f"the host count")
+    phase("e2e_queries", backend=counter.backend, queries=len(q),
+          present=int((want_q > 0).sum()))
 
 
 def timed_count(counter: KmerCounter, path: Path) -> float:
@@ -355,17 +527,15 @@ def timed_count(counter: KmerCounter, path: Path) -> float:
     return time.perf_counter() - t0
 
 
-def end_to_end() -> dict:
+def bench_file() -> Path:
     build_dir = _build.BUILD_DIR
     build_dir.mkdir(parents=True, exist_ok=True)
     path = build_dir / f"bench.{bench.N_READS}.fastq"
-    t0 = time.perf_counter()
     bench.ensure_synth_fastq(path, bench.N_READS, seed=42)
-    want_keys, want_counts = host_count(path, K)
-    phase("e2e_setup", fastq=path.name, reads=bench.N_READS,
-          host_count_s=round(time.perf_counter() - t0, 3),
-          host_distinct=len(want_keys), host_total=int(want_counts.sum()))
+    return path
 
+
+def end_to_end(path: Path, want_keys, want_counts) -> dict:
     counter = KmerCounter(k=K, l=26, batch_words=1 << 20, merge_every=4,
                           device="cuda")
     _build.reset_launch_counts()
@@ -382,22 +552,11 @@ def end_to_end() -> dict:
     if not (np.array_equal(got_keys, want_keys)
             and np.array_equal(got_counts, want_counts)):
         raise AssertionError("export differs from the numpy host count")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SORT_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} not launched on the path")
 
-    # point queries: half present, half random (mostly absent)
-    present = want_keys[rng.integers(0, len(want_keys), 2048)]
-    rand = rng.integers(0, 4**K, 2048, dtype=np.int64)
-    q = np.concatenate([present, rand])
-    idx = np.clip(np.searchsorted(want_keys, q), 0, len(want_keys) - 1)
-    want_q = np.where(want_keys[idx] == q, want_counts[idx], 0)
-    strings = ["".join("ACGT"[(int(v) >> (2 * i)) & 3] for i in range(K))
-               for v in q]
-    got_q = np.asarray(counter.get_counts(strings))
-    if not np.array_equal(got_q, want_q):
-        raise AssertionError("get_counts differs from the host count")
-    phase("e2e_queries", queries=len(q), present=int((want_q > 0).sum()))
+    check_queries(counter, want_keys, want_counts)
 
     counter.reset()
     warm = timed_count(counter, path)
@@ -420,6 +579,105 @@ def end_to_end() -> dict:
     return launches
 
 
+# --- phase 5 ----------------------------------------------------------------
+
+def record_widths(counter: KmerCounter) -> list:
+    """(reprobe index, width) of every split round the counter runs."""
+    widths = []
+    split_round = counter.table.split_round
+
+    def spy(state, r, pos0, *args):
+        widths.append((r, pos0.shape[0]))
+        return split_round(state, r, pos0, *args)
+
+    counter.table.split_round = spy
+    return widths
+
+
+def check_table(counter: KmerCounter, want_keys, want_counts, tag: str
+                ) -> None:
+    st = counter.stats()
+    got_keys, got_counts = export(counter)
+    phase("e2e_table", run=tag, total_kmers=st["total_kmers"],
+          distinct=st["distinct_kmers"], spilled=st["spilled"],
+          fill_factor=st["fill_factor"],
+          probe_histogram=st["probe_histogram"])
+    if st["spilled"] != 0:
+        raise AssertionError(f"table {tag}: {st['spilled']} spilled")
+    if st["fill_factor"] != len(want_keys) / counter.table.slots:
+        raise AssertionError(f"table {tag}: fill factor {st['fill_factor']}")
+    if not (np.array_equal(got_keys, want_keys)
+            and np.array_equal(got_counts, want_counts)):
+        raise AssertionError(f"table {tag}: export differs from the numpy "
+                             f"host count")
+
+
+def table_end_to_end(path: Path, want_keys, want_counts) -> dict:
+    counter = KmerCounter(k=K, l=26, backend="table", batch_words=1 << 20,
+                          device="cuda")
+    widths = record_widths(counter)
+    _build.reset_launch_counts()
+    cold = timed_count(counter, path)
+    launches = _build.launch_counts()
+    total, distinct = counter.total_kmers, counter.distinct
+    phase("e2e_table", run="cold", seconds=round(cold, 4),
+          kmers_per_s=round(total / cold), total_kmers=total,
+          distinct=distinct, launches=launches, rounds=widths)
+    if (total, distinct) != (TOTAL_KMERS, DISTINCT_KMERS):
+        raise AssertionError(f"table totals {total}/{distinct} != "
+                             f"{TOTAL_KMERS}/{DISTINCT_KMERS}")
+    check_table(counter, want_keys, want_counts, "k=14,l=26")
+    for name in TABLE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} not launched on the "
+                                 f"table path")
+    check_queries(counter, want_keys, want_counts)
+    counter.reset()
+    widths.clear()
+    warm = timed_count(counter, path)
+    check_table(counter, want_keys, want_counts, "k=14,l=26 warm")
+    phase("e2e_table", run="warm", seconds=round(warm, 4),
+          kmers_per_s=round(counter.total_kmers / warm), rounds=widths)
+
+    # 2 lanes, several batches into a non-empty table, about half full
+    t0 = time.perf_counter()
+    keys31, counts31 = host_count(path, 31)
+    wide = KmerCounter(k=31, l=25, backend="table", batch_words=1 << 18,
+                       device="cuda")
+    t_wide = timed_count(wide, path)
+    phase("e2e_table", run="k=31,l=25,batch_words=2^18",
+          seconds=round(t_wide, 4), batches=wide.batches_processed,
+          kmers_per_s=round(wide.total_kmers / t_wide),
+          host_count_s=round(time.perf_counter() - t0 - t_wide, 3))
+    check_table(wide, keys31, counts31, "k=31,l=25")
+    check_queries(wide, keys31, counts31)
+    del wide
+    card_vs_cpu()
+    return launches
+
+
+def card_vs_cpu() -> None:
+    """A small file counted on the card and on the CPU (plain versions of
+    every kernel): the table states must match word for word."""
+    path = _build.BUILD_DIR / "small.2000.fastq"
+    bench.ensure_synth_fastq(path, 2000, seed=7)
+    states = []
+    for dev in ("cuda", "cpu"):
+        c = KmerCounter(k=K, l=22, backend="table", batch_words=1 << 14,
+                        device=dev)
+        widths = record_widths(c)
+        c.count_file(path, use_native=True)
+        states.append(c.table.state_to_reference(c.state))
+    err = max(int(np.abs(states[0][f].astype(np.int64)
+                         - states[1][f].astype(np.int64)).max())
+              for f in states[0])
+    phase("table_card_vs_cpu", fastq=path.name, batches=c.batches_processed,
+          distinct=int(states[0]["n"]), rounds=len(widths),
+          max_round=max(r for r, _ in widths), max_abs_err=err)
+    if err:
+        raise AssertionError("table state on the card differs from the CPU's")
+
+
 def main() -> int:
     name, smi = environment()
     build()
@@ -427,17 +685,30 @@ def main() -> int:
     check_compact(results)
     check_merge(results)
     check_merge_dedupe(results)
+    check_apply_kernels(results)
     for kname, r in results.items():
         phase("kernel_time", name=kname, ms=round(r["ms"], 4),
-              plain_ms=round(r["plain_ms"], 4))
+              plain_ms=round(r["plain_ms"], 4),
+              library_ms=r["library_ms"] and round(r["library_ms"], 4),
+              bound_ms=round(r["bound_ms"], 4))
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{kname} differs from its plain version")
-    launches = end_to_end()
+    path = bench_file()
+    t0 = time.perf_counter()
+    want_keys, want_counts = host_count(path, K)
+    phase("e2e_setup", fastq=path.name, reads=bench.N_READS,
+          host_count_s=round(time.perf_counter() - t0, 3),
+          host_distinct=len(want_keys), host_total=int(want_counts.sum()))
+    by_path = {"sort": end_to_end(path, want_keys, want_counts),
+               "table": table_end_to_end(path, want_keys, want_counts)}
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
-         "replaces": KERNELS[kname][1], "launches": launches[kname],
+         "replaces": KERNELS[kname][1],
+         "launches": sum(p[kname] for p in by_path.values()),
+         "launches_by_path": {p: n[kname] for p, n in by_path.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": "bytes", "library_ms": r["library_ms"]}
         for kname, r in results.items()
     ]}))
     print(smi)

@@ -15,6 +15,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tsxcount_tpu_torch import KmerCounter  # noqa: E402
+from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    apply_sorted_unique,
+    apply_sorted_unique_plain,
+    gather_sorted,
+    gather_sorted_plain,
+)
 from tsxcount_tpu_torch.ops.compact import (  # noqa: E402
     compact_flagged,
     compact_flagged_plain,
@@ -122,3 +128,54 @@ def test_counter_on_card_matches_cpu(dev, k):
         c.finish()
         out.append((c.to_dict(), c.distinct, c.total_kmers))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("s,n_live,n_dead,tail", [
+    (4096, 1500, 500, 64), (2048, 2048, 0, 0), (2048, 0, 300, 100),
+    (100000, 2, 1000, 7), (300000, 90000, 200000, 5000),
+])
+def test_gather_and_apply_kernels(dev, s, n_live, n_dead, tail):
+    rng = np.random.default_rng(s + n_live)
+    live = np.sort(rng.choice(s, n_live, replace=False))
+    if n_live == 2:  # the first and the last word
+        live = np.array([0, s - 1])
+    dst2 = np.sort(np.concatenate([2 * live + 1,
+                                   2 * rng.integers(0, s + 1, n_dead)]))
+    dst2 = _t(np.concatenate([dst2, np.full(tail, 1 << 30)]).astype(np.int32),
+              dev)
+    col = _t(rng.integers(0, 2**32, s, dtype=np.uint32), dev)
+    val = _t(rng.integers(2**31, 2**32, dst2.numel(), dtype=np.uint32), dev)
+    for g, w in zip(gather_sorted(col, dst2), gather_sorted_plain(col, dst2)):
+        assert torch.equal(g, w)
+    got = apply_sorted_unique(col.clone(), dst2, val)
+    want = apply_sorted_unique_plain(col.clone(), dst2, val)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_gather_every_row_of_long_runs(dev):
+    """The table's probe: every row of a run reads the same slot word."""
+    rng = np.random.default_rng(3)
+    s = 1 << 20
+    col = _t(rng.integers(0, 2**32, s, dtype=np.uint32), dev)
+    pos = np.sort(rng.integers(0, 4096, 1 << 18))
+    dst2 = _t(np.concatenate([2 * pos + 1, np.full(999, 1 << 30)])
+              .astype(np.int32), dev)
+    for g, w in zip(gather_sorted(col, dst2), gather_sorted_plain(col, dst2)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k,l", [(14, 14), (31, 15)])
+def test_table_counter_on_card_matches_cpu_state(dev, k, l):
+    rng = np.random.default_rng(k)
+    reads = ["".join(rng.choice(list("ACGTN"), size=rng.integers(k, 400)))
+             for _ in range(300)]
+    out = []
+    for d in (dev, "cpu"):
+        c = KmerCounter(k=k, l=l, backend="table", batch_words=512, device=d)
+        c.add_reads(reads)
+        c.finish()
+        out.append((c.table.state_to_reference(c.state), c.to_dict()))
+    for f in out[0][0]:
+        assert np.array_equal(out[0][0][f], out[1][0][f]), f
+    assert out[0][1] == out[1][1]

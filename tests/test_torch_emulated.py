@@ -24,5 +24,6 @@ def test_emulated_kernels_match_plain_versions():
         capture_output=True, text=True, timeout=600,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    for name in ("compact_flagged", "merge_sorted", "merge_dedupe_sorted"):
+    for name in ("compact_flagged", "merge_sorted", "merge_dedupe_sorted",
+                 "apply_sorted_unique", "gather_sorted"):
         assert f"{name}: ok" in proc.stdout

@@ -9,8 +9,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tsxcount_tpu_torch import KmerCounter, _build  # noqa: E402
+from tsxcount_tpu_torch import (  # noqa: E402
+    CountStore,
+    GF2Hash,
+    KmerCounter,
+    KmerSpec,
+    QuotientTable,
+    _build,
+)
 from tsxcount_tpu_torch.io import native  # noqa: E402
+from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    apply_sorted_unique,
+    gather_sorted,
+)
 from tsxcount_tpu_torch.ops.compact import compact_flagged  # noqa: E402
 from tsxcount_tpu_torch.ops.merge import merge_sorted  # noqa: E402
 from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted  # noqa: E402
@@ -45,17 +56,44 @@ def test_cuda_device_raises_without_gpu():
         KmerCounter(k=14, device="cuda:0")
 
 
+@pytest.mark.parametrize("make", [
+    lambda spec, **kw: CountStore(spec, 64, **kw),
+    lambda spec, **kw: QuotientTable(spec, 8, GF2Hash(spec), **kw),
+], ids=["CountStore", "QuotientTable"])
+def test_store_and_table_default_to_the_card(make):
+    """The public store and table classes default to "cuda" like the
+    counter: without a GPU they raise, and take the CPU only when asked."""
+    spec = KmerSpec(14)
+    assert make(spec, device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="unsupported"):
+        make(spec, device="meta")
+    if torch.cuda.is_available():
+        assert make(spec).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        make(spec)
+
+
 @pytest.mark.parametrize("kw", [
-    dict(backend="table"), dict(backend="CAS"), dict(backend="TSX"),
-    dict(backend="EXPERIMENTAL"), dict(canonical=True), dict(lsm=True),
-    dict(hash_first=True), dict(hash_first="mix"), dict(hash_first="gf2"),
-    dict(mix_prefix=True), dict(collapse_homopolymers=True), dict(k=113),
-    dict(k=127),
+    dict(canonical=True), dict(backend="table", canonical=True),
+    dict(lsm=True), dict(hash_first=True), dict(hash_first="mix"),
+    dict(hash_first="gf2"), dict(mix_prefix=True),
+    dict(collapse_homopolymers=True), dict(k=113), dict(k=127),
 ], ids=str)
 def test_out_of_slice_options_raise(kw):
     args = dict(k=14, device="cpu") | kw
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KmerCounter(**args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(backend="table"), dict(backend="CAS"), dict(backend="TSX"),
+    dict(backend="EXPERIMENTAL"), dict(backend="table", k=127),
+], ids=str)
+def test_table_backend_accepted(kw):
+    c = KmerCounter(**(dict(k=14, l=8, device="cpu") | kw))
+    assert c.backend == "table" and c.merge_every == 1
+    assert c.table.slot_cols == c.spec.lanes + 4
 
 
 def test_in_slice_options_accepted():
@@ -76,6 +114,11 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         merge_dedupe_sorted((meta(torch.int32), meta(torch.int64)),
                             (meta(torch.int32), meta(torch.int64)), 1, 1)
+    with pytest.raises(ValueError):
+        gather_sorted(meta(torch.int32), meta(torch.int32))
+    with pytest.raises(ValueError):
+        apply_sorted_unique(meta(torch.int32), meta(torch.int32),
+                            meta(torch.int32))
 
 
 def test_wrappers_check_dtype_shape_contiguity():
@@ -90,6 +133,12 @@ def test_wrappers_check_dtype_shape_contiguity():
         merge_sorted((i32.long(),), (i32.long(),))
     with pytest.raises(TypeError):  # the count column must be int64
         merge_dedupe_sorted((i32, i32), (i32, i32), 1, 1)
+    with pytest.raises(TypeError):  # slot words are int32 bit patterns
+        gather_sorted(i32.long(), i32)
+    with pytest.raises(ValueError):  # one value per destination
+        apply_sorted_unique(i32, i32, i32[:8])
+    with pytest.raises(ValueError):
+        apply_sorted_unique(i32, i32[::2], i32[:8])
 
 
 def test_cpu_path_launches_no_kernel():
@@ -98,6 +147,10 @@ def test_cpu_path_launches_no_kernel():
     c.add_reads(["ACGTACGTACGTACGTTTGACA"] * 5)
     c.finish()
     assert c.distinct == 9
+    t = KmerCounter(k=14, l=10, backend="table", batch_words=32, device="cpu")
+    t.add_reads(["ACGTACGTACGTACGTTTGACA"] * 5)
+    t.finish()
+    assert t.to_dict() == c.to_dict()
     assert set(_build.launch_counts().values()) == {0}
 
 
@@ -118,7 +171,7 @@ def test_nvcc_command_targets_sm90a_in_ignored_build_dir():
     assert cmd[cmd.index("-o") + 1] == str(out)
     assert out.parent == _build.BUILD_DIR and _gitignored(out)
     srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
-    assert srcs == {"compact.cu", "merge.cu", "merge_dedupe.cu"}
+    assert srcs == {"apply.cu", "compact.cu", "merge.cu", "merge_dedupe.cu"}
 
 
 def test_native_parser_built_from_source_into_ignored_dir():

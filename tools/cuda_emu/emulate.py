@@ -9,7 +9,7 @@ tsxcount_tpu_torch/build/emu/, rewrites each `kernel<<<grid, block, smem,
 stream>>>(args)` into an emulated launch, compiles the copies with g++
 against tools/cuda_emu/cuda_runtime.h (one std::thread per CUDA thread),
 loads the result through the same C interface as the real library, and
-runs seeded cases of all three kernels at small sizes.  It catches logic
+runs seeded cases of every kernel at small sizes.  It catches logic
 errors in the kernels (indices, races on shared memory, scan order); it
 does not replace the build and the checks on the card.
 """
@@ -29,6 +29,10 @@ REPO = Path(__file__).resolve().parent.parent.parent
 sys.path.insert(0, str(REPO))
 
 from tsxcount_tpu_torch import _build  # noqa: E402
+from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    apply_sorted_unique_plain,
+    gather_sorted_plain,
+)
 from tsxcount_tpu_torch.ops.compact import compact_flagged_plain  # noqa: E402
 from tsxcount_tpu_torch.ops.merge import merge_sorted_plain  # noqa: E402
 from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted_plain  # noqa: E402
@@ -160,6 +164,42 @@ def main() -> int:
         for g, w in zip(out, want):
             assert torch.equal(g[:r], w[:r]), ("merge_dedupe", m, n, nk)
     print("merge_dedupe_sorted: ok")
+
+    # kernels 4 and 5: sorted doubled destinations, live (odd) addresses
+    # distinct, dead (even) ones between them and a 1 << 30 tail
+    for s, n_live, n_dead, tail in [(4096, 1500, 500, 64), (2048, 2048, 0, 0),
+                                    (2048, 0, 300, 100), (1000, 2, 0, 5),
+                                    (3000, 1, 2000, 0)]:
+        live = np.sort(rng.choice(s, n_live, replace=False))
+        if n_live == 2:  # the first and the last word
+            live = np.array([0, s - 1])
+        dst2 = np.sort(np.concatenate([
+            2 * live + 1, 2 * rng.integers(0, s + 1, n_dead)]))
+        dst2 = t(np.concatenate([dst2, np.full(tail, 1 << 30)])
+                 .astype(np.int32))
+        n = dst2.numel()
+        col = t(rng.integers(0, 2**32, s, dtype=np.uint32))
+        val = t(rng.integers(0, 2**32, n, dtype=np.uint32))
+        out = torch.full((n,), -7, dtype=torch.int32)
+        assert lib.tsx_gather_sorted(col.data_ptr(), s, dst2.data_ptr(), n,
+                                     out.data_ptr(), None) == 0
+        assert torch.equal(out, gather_sorted_plain(col, dst2)[0]), (
+            "gather", s, n_live)
+        got = col.clone()
+        assert lib.tsx_apply_sorted_unique(got.data_ptr(), s, dst2.data_ptr(),
+                                           val.data_ptr(), n, None) == 0
+        want = apply_sorted_unique_plain(col.clone(), dst2, val)[0]
+        assert torch.equal(got, want), ("apply", s, n_live)
+    # the table's probe: every row of a run reads the same word
+    s = 2048
+    col = t(rng.integers(0, 2**32, s, dtype=np.uint32))
+    dst2 = t((2 * np.sort(rng.integers(0, 300, 3000)) + 1).astype(np.int32))
+    out = torch.empty_like(dst2)
+    assert lib.tsx_gather_sorted(col.data_ptr(), s, dst2.data_ptr(),
+                                 dst2.numel(), out.data_ptr(), None) == 0
+    assert torch.equal(out, gather_sorted_plain(col, dst2)[0]), "runs"
+    print("gather_sorted: ok")
+    print("apply_sorted_unique: ok")
     return 0
 
 

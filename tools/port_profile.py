@@ -6,7 +6,8 @@
 Traces with torch.profiler (CPU + CUDA activities):
   1. each port kernel once at chip_smoke.py's main-path shapes;
   2. one warm end-to-end count of the seed-42 bench FASTQ at k=14 with the
-     CLI's defaults (the first, cold count is untraced).
+     CLI's defaults (the first, cold count is untraced), by the sort
+     backend and by the table backend (l=26).
 Prints, per part, the device time by kernel name (key_averages, sorted by
 device time), the part's wall time and the device's busy share over it;
 writes the tables and a Chrome trace of the end-to-end part to DIR
@@ -122,6 +123,13 @@ def main() -> int:
     counter.reset()
     traced("e2e_warm_k14", lambda: counter.count_file(path, use_native=True),
            out, trace=True)
+    del counter
+    table = KmerCounter(k=14, l=26, backend="table", batch_words=1 << 20,
+                        device="cuda")
+    table.count_file(path, use_native=True)  # cold, untraced
+    table.reset()
+    traced("e2e_warm_k14_table",
+           lambda: table.count_file(path, use_native=True), out, trace=True)
     print("device:", torch.cuda.get_device_name(0))
     return 0
 

@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"compact_flagged": 0, "merge_sorted": 0, "merge_dedupe_sorted": 0}
+LAUNCHES = {"compact_flagged": 0, "merge_sorted": 0, "merge_dedupe_sorted": 0,
+            "apply_sorted_unique": 0, "gather_sorted": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -53,6 +54,8 @@ _SIGNATURES = {
     "tsx_merge_dedupe_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "tsx_merge_dedupe_sorted": (_INT, [_P, _P, _P, _INT, _I64, _I64,
                                        ctypes.c_uint32, _P, _P, _P]),
+    "tsx_gather_sorted": (_INT, [_P, _I64, _P, _I64, _P, _P]),
+    "tsx_apply_sorted_unique": (_INT, [_P, _I64, _P, _P, _I64, _P]),
     "tsx_error_string": (ctypes.c_char_p, [_INT]),
 }
 
@@ -174,3 +177,17 @@ def check_columns(name: str, cols, dtypes: tuple, length: int | None = None,
 def require_cuda(name: str, dev: torch.device) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name}: tensors on {dev}; expected cpu or cuda")
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device of a counter, store or table: "cuda" raises where no GPU
+    is present, and the CPU is used only when asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to count on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

@@ -1,12 +1,20 @@
-"""KmerCounter — the end-to-end streaming counter, sort backend.
+"""KmerCounter — the end-to-end streaming counter.
 
 Streams FASTQ/FASTA records, packs them on the host (io/), and folds each
-fixed-shape batch through the device: window extraction, an exact batch
-histogram (sort + kernel 1), and every `merge_every` batches one store
-merge (kernel 2's merge tree, then kernel 3 into the store).  Parsing,
-packing and the host-to-device copy run on a producer thread
+fixed-shape batch through the device: window extraction and an exact batch
+histogram (sort + kernel 1), then, by backend (the reference's --mode
+strings map onto the two):
+  * "sort": every `merge_every` batches one store merge (kernel 2's merge
+    tree, then kernel 3 into the sorted store, core/store.py);
+  * "table": an insert into the quotient table (core/table.py) in reprobe
+    rounds of shrinking width (kernels 5, 4 and 1 per round), the widths
+    chosen on the host from the batch's distinct count and each round's
+    leftover count, exactly as the JAX package chooses them.
+Parsing, packing and the host-to-device copy run on a producer thread
 (io/pipeline.py); this thread launches the device work, which PyTorch
-queues without waiting, and synchronises once per file or query.
+queues without waiting.  The sort backend synchronises once per file or
+query, the table backend also once per batch and per round (the counts
+that size the rounds).
 
 The device is explicit: "cuda" (the default) raises where no GPU is
 present, and nothing falls back to the CPU unless asked for.
@@ -23,11 +31,14 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from tsxcount_tpu_torch.config import BatchSpec, KmerSpec
+from tsxcount_tpu_torch._build import resolve_device
+from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, counts_to_int
 from tsxcount_tpu_torch.core.store import CountStore
+from tsxcount_tpu_torch.core.table import QuotientTable
 from tsxcount_tpu_torch.io.fastx import read_fastx
 from tsxcount_tpu_torch.io.packer import PackedBatch, ReadPacker, add_stats
 from tsxcount_tpu_torch.ops.count import UniqueCounts, count_unique
+from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.utils.goldenfile import read_golden
 from tsxcount_tpu_torch.utils.sequence import kmers_to_strings, strings_to_kmers
@@ -42,7 +53,9 @@ MODE_TO_BACKEND = {
     "TSX": "table",
     "EXPERIMENTAL": "table",
 }
-MAX_LANES = 7  # from 8 lanes (k >= 113) the JAX package engages a lane mix
+MAX_LANES = 7  # sort backend: from 8 lanes (k >= 113) the JAX package
+               # engages a lane mix
+_TABLE_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
 
 _QUERY_BATCH = 1 << 16
 _HINT_SAMPLE = 64  # reads sampled for the auto read-length hint
@@ -59,18 +72,6 @@ def _peek_read_lens(path) -> list[int]:
     """Lengths of the first few records (for interval-budget auto-sizing)."""
     return [len(rec.seq)
             for rec in itertools.islice(read_fastx(path), _HINT_SAMPLE)]
-
-
-def resolve_device(device: str | torch.device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to count on the CPU"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
 
 
 @dataclasses.dataclass
@@ -95,7 +96,8 @@ class CheckAbort(RuntimeError):
 
 
 class TableFull(RuntimeError):
-    """Distinct k-mers exceeded the store's capacity 2^l."""
+    """Distinct k-mers exceeded the store's capacity 2^l, or (table) some
+    found no slot within max_reprobes."""
 
 
 class KmerCounter:
@@ -107,6 +109,9 @@ class KmerCounter:
         backend: str = "sort",
         batch_words: int = 1 << 16,
         n_policy: str = "drop",
+        hash_seed: int = DEFAULT_SEED,
+        identity_hash: bool = False,
+        max_reprobes: int = 64,
         seed: int = 0,
         merge_every: int = 4,
         canonical: bool = False,
@@ -120,12 +125,9 @@ class KmerCounter:
         device: str | torch.device = "cuda",
     ):
         backend = MODE_TO_BACKEND.get(backend, backend)
-        if backend == "table":
-            raise _not_ported("backend='table' (modes CAS, TSX, "
-                              "EXPERIMENTAL)", "Queue 1 item 11")
-        if backend != "sort":
-            raise ValueError(f"backend must be 'sort' or a reference mode "
-                             f"{sorted(MODE_TO_BACKEND)}")
+        if backend not in ("sort", "table"):
+            raise ValueError(f"backend must be 'sort', 'table' or a "
+                             f"reference mode {sorted(MODE_TO_BACKEND)}")
         if canonical:
             raise _not_ported("canonical=True", "Queue 1 item 9")
         if lsm:
@@ -137,7 +139,7 @@ class KmerCounter:
         if collapse_homopolymers:
             raise _not_ported("collapse_homopolymers=True", "Queue 1 item 13")
         self.spec = KmerSpec(k)
-        if self.spec.lanes > MAX_LANES:
+        if backend == "sort" and self.spec.lanes > MAX_LANES:
             raise _not_ported(f"k={k} ({self.spec.lanes} lanes, lane mix)",
                               "Queue 1 item 7")
         self.device = resolve_device(device)
@@ -152,16 +154,25 @@ class KmerCounter:
         self.seed = seed
         self.threads = max(1, threads)
         self.prefetch_depth = max(1, prefetch_depth)
-        self.merge_every = max(1, merge_every)
         # lsm=None uses the flat store: counts are exact either way, and the
         # JAX package's auto rule for the LSM store is a TPU measurement
         self.lsm = False
-        self.store = CountStore(self.spec, 1 << l, self.device)
+        if backend == "sort":
+            self.merge_every = max(1, merge_every)
+            self.store = CountStore(self.spec, 1 << l, self.device)
+        else:
+            self.merge_every = 1
+            self.hash_fn = GF2Hash(self.spec, seed=hash_seed,
+                                   identity=identity_hash)
+            self.table = QuotientTable(self.spec, l, self.hash_fn,
+                                       max_reprobes=max_reprobes,
+                                       device=self.device)
         self.reset()
 
     def reset(self) -> None:
         """Clear all counts and ingest stats."""
-        self.state = self.store.init_state()
+        self.state = (self.store if self.backend == "sort"
+                      else self.table).init_state()
         self._pending: list[UniqueCounts] = []
         self.packer = ReadPacker(self.batch, n_policy=self.n_policy,
                                  seed=self.seed)
@@ -174,6 +185,13 @@ class KmerCounter:
         a count started there continues here.  Ingest stats are kept."""
         self._pending = []
         self.state = self.store.state_from_reference(ref)
+
+    def load_table_state(self, ref) -> None:
+        """Replace the counts with a table state from the JAX package
+        (`tsxcount_tpu` KmerCounter.state's fields slots, n, spilled and
+        probe_hist as numpy arrays; the same k, l, hash and max_reprobes),
+        so that a count started there continues here."""
+        self.state = self.table.state_from_reference(ref)
 
     def _adapt_read_len(self, read_lens) -> None:
         """One-shot sizing of the interval budget from the shortest of the
@@ -220,12 +238,49 @@ class KmerCounter:
             torch.stack([u.valid for u in pend]),
         )
 
+    def _table_step(self, buf: torch.Tensor) -> None:
+        """Insert one batch into the table with the JAX package's host
+        schedule, which decides which arbitration each row meets and so
+        the table's layout: round 0 at the narrowest of P/4, P/2 (at least
+        256) that holds the batch's distinct keys, else P; each later round
+        at the next power of two >= the rows left (at least 256); the plain
+        tail once w * slot_cols <= 2^18 or from round 6 on."""
+        uc = self._dedupe(buf)
+        table = self.table
+        p = uc.keys.shape[0]
+        n = int(uc.n_unique)
+        width = p
+        for w in (p // 4, p // 2):
+            if 256 <= w and n <= w:
+                width = w
+                break
+        st, carry, _, n_left = table.split_round(
+            self.state, 0, *table.round0_args(
+                uc.keys[:width], uc.counts[:width], uc.valid[:width]))
+        r = 1
+        while True:
+            f = int(n_left)
+            if f == 0:
+                self.state = table.renorm(st)
+                return
+            w = min(width, max(256, 1 << (f - 1).bit_length()))
+            if w * table.slot_cols <= _TABLE_RESIDUE_ELEMS or r >= 6:
+                self.state = table.residue_phase(st, carry, r, w)
+                return
+            p0, cl, c, a = carry
+            st, carry, _, n_left = table.split_round(
+                st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
+            r += 1
+
     def _consume_bufs(self, bufs: Iterable[torch.Tensor]) -> None:
         t0 = time.perf_counter()
         for buf in bufs:
-            self._pending.append(self._dedupe(buf))
-            if len(self._pending) >= self.merge_every:
-                self._flush_pending()
+            if self.backend == "table":
+                self._table_step(buf)
+            else:
+                self._pending.append(self._dedupe(buf))
+                if len(self._pending) >= self.merge_every:
+                    self._flush_pending()
             self.batches_processed += 1
         self.elapsed += time.perf_counter() - t0
 
@@ -249,7 +304,15 @@ class KmerCounter:
 
     def _check_capacity(self) -> None:
         # the one host synchronisation per file
-        if bool(self.state.overflowed):
+        if self.backend == "table":
+            spilled = int(self.state.spilled)
+            if spilled:
+                raise TableFull(
+                    f"{spilled} kmers unresolved after "
+                    f"{self.table.max_reprobes} reprobes; increase l or "
+                    f"max_reprobes"
+                )
+        elif bool(self.state.overflowed):
             raise TableFull(
                 f"distinct kmers exceeded capacity 2^{self.l}; rerun with "
                 f"a larger l"
@@ -315,14 +378,24 @@ class KmerCounter:
         for off in range(0, len(kmers), _QUERY_BATCH):
             q = torch.from_numpy(keys[off : off + _QUERY_BATCH]).to(
                 self.device)
-            counts, _ = self.store.lookup(self.state, q)
-            out.extend(counts.cpu().tolist())
+            if self.backend == "sort":
+                counts, _ = self.store.lookup(self.state, q)
+                out.extend(counts.cpu().tolist())
+                continue
+            digits, found = self.table.lookup(self.state, q)
+            for (d0, d1, d2), ok in zip(digits.cpu().tolist(),
+                                        found.cpu().tolist()):
+                out.append(counts_to_int(d0, d1, d2) if ok else 0)
         return out
 
     def items(self) -> Iterator[tuple[str, int]]:
-        """Stream (kmer string, count) for every stored k-mer, ascending."""
+        """Stream (kmer string, count) for every stored k-mer: ascending
+        (sort backend) or in slot order (table backend)."""
         self._flush_pending()
-        keys, counts, _ = self.store.to_host(self.state)
+        if self.backend == "sort":
+            keys, counts, _ = self.store.to_host(self.state)
+        else:
+            keys, counts, _ = self.table.to_host(self.state)
         for kmer_str, cnt in zip(kmers_to_strings(keys, self.spec),
                                  counts.tolist()):
             yield kmer_str, cnt
@@ -369,6 +442,14 @@ class KmerCounter:
             batches=self.batches_processed,
             host_seconds=round(self.elapsed, 4),
         )
+        if self.backend == "table":
+            st["fill_factor"] = self.table.fill_factor(self.state)
+            st["spilled"] = int(self.state.spilled)
+            # reprobe-depth histogram, trailing zeros trimmed
+            hist = self.state.probe_hist.cpu().tolist()
+            while hist and hist[-1] == 0:
+                hist.pop()
+            st["probe_histogram"] = hist
         return st
 
     def print_stats(self) -> None:

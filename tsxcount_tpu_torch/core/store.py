@@ -23,6 +23,7 @@ from typing import Mapping, NamedTuple
 import numpy as np
 import torch
 
+from tsxcount_tpu_torch._build import resolve_device
 from tsxcount_tpu_torch.config import (
     COUNT_DIGIT_BITS,
     COUNT_DIGIT_MASK,
@@ -53,10 +54,10 @@ class CountStore:
     """Fixed-capacity sorted (key -> count) map on one device."""
 
     def __init__(self, spec: KmerSpec, capacity: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.spec = spec
         self.capacity = int(capacity)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_ops = flag_ops(spec)
         self.inv_consts = invalid_constants(spec)
         self.inv_min = self.inv_consts[0]

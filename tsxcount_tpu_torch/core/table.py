@@ -1,0 +1,476 @@
+"""Quotient/reprobe hash table: the jellyfish-style table backend.
+
+Semantics (the JAX package's `core/table.py`, which mirrors the reference's
+TSXHashMap):
+
+  * the slot of reprobe attempt r is (hash mod 2^L + r(r+1)/2) mod 2^L
+    (triangular reprobing);
+  * a slot stores [func bits | r] where func = hash >> L, so the low L
+    hash bits are recoverable from the slot index, and the bijective GF(2)
+    hash (ops/gf2.py) makes the whole k-mer recoverable from the table;
+  * counts are exact: 3 base-2^20 digits per slot, renormalised after each
+    insert.
+
+STATE LAYOUT, kept exactly as in the JAX package so that the two states
+compare word for word: one flat int32 array (uint32 bit patterns) in
+column-major order.  Column c of slot i is element c * 2^L + i; the columns
+are [key lanes | 3 count digits | used flag].
+
+A batch of distinct keys is inserted in reprobe rounds.  A round sorts the
+rows by probed slot (stable), reads every active row's slot (kernel 5; the
+JAX package gathers at run heads only, as its TPU gather needs distinct
+addresses, and fills the value forward), and arbitrates: a row whose key is in the
+slot matches, and an empty slot goes to the LAST contender of its run.  Kernel 4 then adds one combined row per resolved contender into
+every column, and kernel 1 compacts the unresolved rows to a prefix whose
+size the host reads to size the next round.  The narrow tail of an insert
+(`residue_phase`) resolves in plain PyTorch, where the lowest original
+index wins an empty slot, as in the JAX package.
+
+The slot array is updated IN PLACE by every round, the tail and the
+renormalisation: a returned TableState shares the array of the state it
+was made from, which is no longer to be used.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+from tsxcount_tpu_torch._build import resolve_device
+from tsxcount_tpu_torch.config import (
+    COUNT_DIGIT_BITS,
+    COUNT_DIGIT_MASK,
+    COUNT_DIGITS,
+    KmerSpec,
+)
+from tsxcount_tpu_torch.ops.apply import apply_sorted_unique, gather_sorted
+from tsxcount_tpu_torch.ops.compact import compact_flagged
+from tsxcount_tpu_torch.ops.gf2 import GF2Hash
+from tsxcount_tpu_torch.ops.lanes import i32, u32
+
+DEAD = 1 << 30  # dst2 of inactive rows: even, past every doubled address
+REFERENCE_FIELDS = ("slots", "n", "spilled", "probe_hist")
+
+
+class TableState(NamedTuple):
+    slots: torch.Tensor       # int32 [cols * slots], column-major
+    n: torch.Tensor           # int64 0-d: distinct k-mers
+    spilled: torch.Tensor     # int64 0-d: k-mers dropped after max reprobes
+    probe_hist: torch.Tensor  # int64 [max_reprobes]: k-mers resolved at r
+
+
+def _triangular(r):
+    return (r * (r + 1)) // 2
+
+
+class QuotientTable:
+    """2^L-slot reprobing table over GF(2)-hashed multi-lane keys."""
+
+    _EXPORT_CHUNK = 1 << 20  # slots per export chunk
+
+    def __init__(self, spec: KmerSpec, l_bits: int, hash_fn: GF2Hash,
+                 max_reprobes: int = 64,
+                 device: str | torch.device = "cuda"):
+        if not 1 <= l_bits <= 31:
+            raise ValueError("l_bits must be in [1, 31]")
+        if 2 * spec.k <= l_bits:
+            raise ValueError(
+                f"2k={2*spec.k} must exceed l={l_bits} (func field would be empty)"
+            )
+        self.spec = spec
+        self.l_bits = l_bits
+        self.slots = 1 << l_bits
+        self.hash_fn = hash_fn
+        self.device = resolve_device(device)
+        # the reference's bound is 2^L - 1 reprobes
+        self.max_reprobes = min(max_reprobes, self.slots - 1)
+        self._low_mask = (1 << l_bits) - 1
+        # flat doubled element destinations must fit int32
+        if 2 * self.slots * self.slot_cols >= 2**31:
+            raise ValueError(
+                f"table too large: 2^{l_bits} slots x {self.slot_cols} "
+                f"columns exceeds the int32 element-address space (the "
+                f"slot array alone would be "
+                f"{self.slots * self.slot_cols * 4 / 2**30:.1f} GiB)"
+            )
+
+    @property
+    def slot_cols(self) -> int:
+        """Columns of a slot: key lanes + digits + used."""
+        return self.spec.lanes + COUNT_DIGITS + 1
+
+    def init_state(self) -> TableState:
+        dev = self.device
+        return TableState(
+            slots=torch.zeros(self.slot_cols * self.slots, dtype=torch.int32,
+                              device=dev),
+            n=torch.zeros((), dtype=torch.int64, device=dev),
+            spilled=torch.zeros((), dtype=torch.int64, device=dev),
+            probe_hist=torch.zeros(self.max_reprobes, dtype=torch.int64,
+                                   device=dev),
+        )
+
+    # --- column views (1-D slices of the flat array) -----------------------
+
+    def _col(self, slots_flat: torch.Tensor, c: int) -> torch.Tensor:
+        s = self.slots
+        return slots_flat[c * s : (c + 1) * s]
+
+    def state_keys(self, state: TableState) -> torch.Tensor:
+        """int32 [slots, lanes] slot keys ((func << L) | reprobe)."""
+        return torch.stack(
+            [self._col(state.slots, j) for j in range(self.spec.lanes)], dim=1
+        )
+
+    def state_digits(self, state: TableState) -> torch.Tensor:
+        """int32 [slots, 3] count digits."""
+        lanes = self.spec.lanes
+        return torch.stack(
+            [self._col(state.slots, lanes + j) for j in range(COUNT_DIGITS)],
+            dim=1,
+        )
+
+    def state_used(self, state: TableState) -> torch.Tensor:
+        """bool [slots]."""
+        return self._col(state.slots, self.slot_cols - 1) != 0
+
+    def renorm(self, state: TableState) -> TableState:
+        """Base-2^20 digit renormalisation, in place: carries d0 -> d1 ->
+        d2 over the three digit column regions."""
+        lanes = self.spec.lanes
+        d0 = self._col(state.slots, lanes)
+        d1 = self._col(state.slots, lanes + 1)
+        d2 = self._col(state.slots, lanes + 2)
+        c0 = d0 >> COUNT_DIGIT_BITS
+        d0 &= COUNT_DIGIT_MASK
+        d1 += c0
+        c1 = d1 >> COUNT_DIGIT_BITS
+        d1 &= COUNT_DIGIT_MASK
+        d2.copy_(i32(d2.to(torch.int64) + c1))  # wraps as the TPU's int32
+        return state
+
+    def _bump_hist(self, hist: torch.Tensor, r: int, k: torch.Tensor
+                   ) -> torch.Tensor:
+        # a reprobe index past the histogram lands in its last bin, as the
+        # JAX package's clamped index does
+        hist = hist.clone()
+        hist[min(r, hist.shape[0] - 1)] += k
+        return hist
+
+    # --- probe-state derivation --------------------------------------------
+
+    def _hash_cols(self, ukeys: torch.Tensor):
+        """(pos0 int32 [P], cleared lane columns): cleared is the hash with
+        its low L bits zeroed, (func << L); OR-ing the reprobe count into
+        lane 0 gives the stored slot key."""
+        h = self.hash_fn.apply(ukeys)
+        pos0 = h[:, 0] & self._low_mask
+        cleared = (h[:, 0] & ~self._low_mask,) + tuple(
+            h[:, j].contiguous() for j in range(1, self.spec.lanes)
+        )
+        return pos0, cleared
+
+    def round0_args(self, ukeys, ucounts, uvalid):
+        """(pos0, cleared columns, counts, active) for split_round r=0."""
+        pos0, cleared = self._hash_cols(ukeys)
+        return pos0, cleared, ucounts.to(torch.int32), uvalid
+
+    # --- the split round ----------------------------------------------------
+
+    def split_round(self, state: TableState, r: int, pos0, cleared, counts,
+                    active):
+        """One reprobe round at index `r` (see the module docstring).
+
+        cleared: tuple of lane columns.  Returns (state', carry=(pos0_c,
+        cleared_c, counts_c, active_c), n_enter, n_left), the carry rows
+        compacted so that the active ones are exactly the first n_left.
+        """
+        s = self.slots
+        lanes = self.spec.lanes
+        cols = self.slot_cols
+        width = pos0.shape[0]
+        dev = pos0.device
+        pos = (pos0.to(torch.int64) + _triangular(r)) % s
+        # inactive rows sort last; the sort is stable, as the layout needs
+        ckey = torch.where(active, pos, s)
+        ckey_s, perm = torch.sort(ckey, stable=True)
+        pos0_s, counts_s = pos0[perm], counts[perm]
+        cleared_s = tuple(c[perm] for c in cleared)
+        active_s = ckey_s < s
+        run_end = torch.ones_like(active_s)
+        run_end[:-1] = ckey_s[1:] != ckey_s[:-1]
+        safe_pos = torch.where(active_s, ckey_s, 0)
+
+        # slot contents (key lanes + used flag): kernel 5 reads every
+        # active row's slot (the rows of a run read the same word)
+        probe_cols = list(range(lanes)) + [cols - 1]
+        dstg = torch.where(active_s, (safe_pos << 1) | 1, DEAD).to(torch.int32)
+        g_cols = []
+        spilled = state.spilled
+        for c in probe_cols:
+            gc, ov = gather_sorted(self._col(state.slots, c), dstg)
+            g_cols.append(gc)
+            spilled = spilled + ov
+
+        used_s = g_cols[-1] != 0
+        slotkey0_s = cleared_s[0] | r
+        key_eq = g_cols[0] == slotkey0_s
+        for j in range(1, lanes):
+            key_eq &= g_cols[j] == cleared_s[j]
+        match_s = active_s & used_s & key_eq
+        winner = active_s & ~used_s & run_end
+        resolved = match_s | winner
+
+        # one combined add-row per resolved contender (kernel 4, in place)
+        val_cols = (
+            [torch.where(winner, slotkey0_s, 0)]
+            + [torch.where(winner, cleared_s[j], 0) for j in range(1, lanes)]
+            + [counts_s & COUNT_DIGIT_MASK,
+               (counts_s >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK,
+               torch.zeros_like(counts_s),
+               winner.to(torch.int32)]
+        )
+        dsta = torch.where(
+            active_s,
+            torch.where(resolved, (safe_pos << 1) | 1, safe_pos << 1),
+            DEAD,
+        ).to(torch.int32)
+        for c in range(cols):
+            _, ov = apply_sorted_unique(self._col(state.slots, c), dsta,
+                                        val_cols[c].contiguous())
+            spilled = spilled + ov
+
+        new_state = TableState(
+            slots=state.slots,
+            n=state.n + winner.sum(),
+            spilled=spilled,
+            probe_hist=self._bump_hist(state.probe_hist, r, resolved.sum()),
+        )
+
+        # compact the surviving rows to an exact prefix (kernel 1)
+        active_next = active_s & ~resolved
+        n_left = active_next.sum()
+        comp = compact_flagged(active_next.to(torch.int32),
+                               (pos0_s, counts_s) + cleared_s)
+        active_c = torch.arange(width, device=dev) < n_left
+        carry = (comp[0], tuple(comp[2:]), comp[1], active_c)
+        return new_state, carry, active.sum(), n_left
+
+    def residue_phase(self, state: TableState, carry, r_start: int,
+                      width2: int) -> TableState:
+        """Finish an insert from the compacted carry at width `width2`
+        (plain gathers and scatters; an empty slot goes to the lowest
+        original index among its contenders), then renormalise.  Rows
+        active beyond width2 are counted spilled, which cannot happen when
+        width2 covers the round's n_left.  One host check per round."""
+        s = self.slots
+        lanes = self.spec.lanes
+        cols = self.slot_cols
+        pos0_f, cleared_f, counts_f, active_f = carry
+        lost = active_f.sum() - active_f[:width2].sum()
+        pos0 = pos0_f[:width2].to(torch.int64)
+        cleared = tuple(c[:width2] for c in cleared_f)
+        counts = counts_f[:width2]
+        d0 = counts & COUNT_DIGIT_MASK
+        d1 = (counts >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK
+        zeros_w = torch.zeros_like(counts)
+        probe_cols = list(range(lanes)) + [cols - 1]
+        slots = state.slots
+        n, hist = state.n, state.probe_hist
+        unresolved = active_f[:width2].clone()
+        r = r_start
+        while r < self.max_reprobes and bool(unresolved.any()):
+            pos = (pos0 + _triangular(r)) % s
+            slotkey0 = cleared[0] | r
+            g_cols = [slots[c * s + pos] for c in probe_cols]
+            used_g = g_cols[-1] != 0
+            key_eq = g_cols[0] == slotkey0
+            for j in range(1, lanes):
+                key_eq &= g_cols[j] == cleared[j]
+            match = unresolved & used_g & key_eq
+            empty = unresolved & ~used_g
+            ckey_s, perm = torch.sort(torch.where(empty, pos, s), stable=True)
+            first = torch.ones_like(empty)
+            first[1:] = ckey_s[1:] != ckey_s[:-1]
+            winner = torch.zeros_like(empty)
+            winner[perm] = first & (ckey_s < s)
+            upd = match | winner
+            val_cols = (
+                [torch.where(winner, slotkey0, 0)]
+                + [torch.where(winner, cleared[j], 0)
+                   for j in range(1, lanes)]
+                + [d0, d1, zeros_w, winner.to(torch.int32)]
+            )
+            p = pos[upd]
+            for c in range(cols):
+                e = c * s + p
+                slots[e] = i32(u32(slots[e]) + u32(val_cols[c][upd]))
+            n = n + winner.sum()
+            hist = self._bump_hist(hist, r, upd.sum())
+            unresolved &= ~upd
+            r += 1
+        spilled = state.spilled + lost + unresolved.sum()
+        return self.renorm(TableState(slots=slots, n=n, spilled=spilled,
+                                      probe_hist=hist))
+
+    def insert(self, state: TableState, ukeys: torch.Tensor,
+               ucounts: torch.Tensor, uvalid: torch.Tensor) -> TableState:
+        """Insert a deduplicated batch histogram (keys unique where uvalid)
+        through the plain rounds to completion.  The counter uses the
+        host-driven split rounds instead (core/counter.py _table_step)."""
+        pos0, cleared = self._hash_cols(ukeys)
+        carry = (pos0, cleared, ucounts.to(torch.int32), uvalid)
+        return self.residue_phase(state, carry, 0, ukeys.shape[0])
+
+    # --- queries -----------------------------------------------------------
+
+    def _probe(self, state: TableState, queries: torch.Tensor, on_match):
+        """Walk each query's probe sequence until it matches, meets an empty
+        slot (slots are never freed, so that proves absence) or runs out of
+        reprobes; on_match(match, r, pos) is called once per round."""
+        lanes = self.spec.lanes
+        cols = self.slot_cols
+        s = self.slots
+        pos0, cleared = self._hash_cols(queries)
+        pos0 = pos0.to(torch.int64)
+        active = torch.ones(queries.shape[0], dtype=torch.bool,
+                            device=queries.device)
+        found = torch.zeros_like(active)
+        r = 0
+        while r < self.max_reprobes and bool(active.any()):
+            pos = (pos0 + _triangular(r)) % s
+            used_g = state.slots[(cols - 1) * s + pos] != 0
+            key_eq = state.slots[pos] == (cleared[0] | r)
+            for j in range(1, lanes):
+                key_eq &= state.slots[j * s + pos] == cleared[j]
+            match = active & used_g & key_eq
+            on_match(match, r, pos)
+            found |= match
+            active &= used_g & ~match
+            r += 1
+        return found
+
+    def lookup(self, state: TableState, queries: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Probe-walk lookup of (N, lanes) int32 keys.  Returns (digits
+        int32 [N, 3], found bool [N])."""
+        s = self.slots
+        lanes = self.spec.lanes
+        out = torch.zeros((queries.shape[0], COUNT_DIGITS), dtype=torch.int32,
+                          device=queries.device)
+
+        def take(match, r, pos):
+            digits = torch.stack(
+                [state.slots[(lanes + j) * s + pos]
+                 for j in range(COUNT_DIGITS)], dim=1)
+            out.copy_(torch.where(match[:, None], digits, out))
+
+        found = self._probe(state, queries, take)
+        return out, found
+
+    def get_positions(self, state: TableState, queries: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Debug API: the slot and reprobe count where each query resides.
+        Returns (pos int32 [N], reprobe int32 [N], found bool [N]); pos and
+        reprobe are -1 when absent."""
+        n_q = queries.shape[0]
+        out_pos = torch.full((n_q,), -1, dtype=torch.int64,
+                             device=queries.device)
+        out_r = torch.full_like(out_pos, -1)
+
+        def take(match, r, pos):
+            out_pos.copy_(torch.where(match, pos, out_pos))
+            out_r.masked_fill_(match, r)
+
+        found = self._probe(state, queries, take)
+        return out_pos.to(torch.int32), out_r.to(torch.int32), found
+
+    def _unhash(self, state: TableState, slot_idx: torch.Tensor
+                ) -> torch.Tensor:
+        """k-mers (int32 [N, lanes]) stored at slots `slot_idx`: the missing
+        low L hash bits of slot i holding (func << L) | r are
+        (i - r(r+1)/2) mod 2^L."""
+        key0 = self._col(state.slots, 0)[slot_idx]
+        r = (key0 & self._low_mask).to(torch.int64)
+        missing = (slot_idx - _triangular(r)) % self.slots
+        hashed = torch.stack(
+            [(key0 & ~self._low_mask) | missing.to(torch.int32)]
+            + [self._col(state.slots, j)[slot_idx]
+               for j in range(1, self.spec.lanes)],
+            dim=1,
+        )
+        return self.hash_fn.inv_apply(hashed)
+
+    def reconstruct_all(self, state: TableState
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rebuild every slot's k-mer (debug path; the export works in
+        chunks of used slots).  Returns (kmers int32 [slots, lanes], used
+        bool [slots])."""
+        i = torch.arange(self.slots, device=state.slots.device)
+        return self._unhash(state, i), self.state_used(state)
+
+    def to_host(self, state: TableState) -> tuple[np.ndarray, np.ndarray, int]:
+        """(kmer keys uint32 [n, lanes], counts int64 [n], n), used slots
+        in slot order, one chunk of slots at a time (device work and host
+        traffic in proportion to the used slots)."""
+        lanes = self.spec.lanes
+        used_col = self._col(state.slots, self.slot_cols - 1)
+        kmer_parts, digit_parts = [], []
+        for start in range(0, self.slots, self._EXPORT_CHUNK):
+            used = used_col[start : start + self._EXPORT_CHUNK] != 0
+            idx = torch.nonzero(used).squeeze(1) + start
+            if idx.numel() == 0:
+                continue
+            kmer_parts.append(self._unhash(state, idx).cpu())
+            digit_parts.append(torch.stack(
+                [self._col(state.slots, lanes + j)[idx]
+                 for j in range(COUNT_DIGITS)], dim=1).cpu())
+        if not kmer_parts:
+            return (np.zeros((0, lanes), np.uint32), np.zeros(0, np.int64), 0)
+        kmers = torch.cat(kmer_parts).numpy().view(np.uint32)
+        d = torch.cat(digit_parts).numpy().astype(np.int64)
+        counts = (d[:, 0] + (d[:, 1] << COUNT_DIGIT_BITS)
+                  + (d[:, 2] << 2 * COUNT_DIGIT_BITS))
+        return kmers, counts, len(kmers)
+
+    def fill_factor(self, state: TableState) -> float:
+        """Occupancy ratio."""
+        return int(state.n) / self.slots
+
+    # --- exchange with the JAX package's TableState ---
+
+    def state_from_reference(self, ref) -> TableState:
+        """Port state from the JAX package's table state, given as numpy
+        arrays (a mapping or an object with fields slots uint32
+        [cols * slots], n, spilled, probe_hist [max_reprobes])."""
+        get = ref.__getitem__ if isinstance(ref, Mapping) else (
+            lambda f: getattr(ref, f))
+        slots, n, spilled, hist = (np.asarray(get(f))
+                                   for f in REFERENCE_FIELDS)
+        if slots.shape != (self.slot_cols * self.slots,) or hist.shape != (
+                self.max_reprobes,):
+            raise ValueError(
+                f"reference table shapes {slots.shape}/{hist.shape} do not "
+                f"fit 2^{self.l_bits} slots x {self.slot_cols} columns and "
+                f"{self.max_reprobes} reprobes"
+            )
+        dev = self.device
+        return TableState(
+            slots=torch.from_numpy(
+                slots.astype(np.uint32).view(np.int32)).to(dev),
+            n=torch.tensor(int(n), dtype=torch.int64, device=dev),
+            spilled=torch.tensor(int(spilled), dtype=torch.int64, device=dev),
+            probe_hist=torch.from_numpy(hist.astype(np.int64)).to(dev),
+        )
+
+    @staticmethod
+    def state_to_reference(state: TableState) -> dict[str, np.ndarray]:
+        """The JAX package's table-state fields, as numpy arrays."""
+        return {
+            "slots": state.slots.cpu().numpy().view(np.uint32),
+            "n": np.int32(int(state.n)),
+            "spilled": np.int32(int(state.spilled)),
+            "probe_hist": state.probe_hist.cpu().numpy().astype(np.int32),
+        }

@@ -1,0 +1,106 @@
+"""The table's slot update and slot probe (kernels 4 and 5, csrc/apply.cu).
+
+Replace the TPU kernels `apply_sorted_unique` and `gather_sorted`
+(tsxcount_tpu/ops/pallas_apply.py).  Both address one column region of the
+table's flat slot array (S uint32 words, carried as int32 bit patterns)
+through "doubled" destinations: element e of `dst2` (int32) is live iff it
+is odd, and then names word `dst2[e] >> 1`.  Dead elements (even values,
+and the `1 << 30` tail of inactive rows) are ignored.  The callers sort by
+slot, so `dst2` is non-decreasing.  apply_sorted_unique relies on its live
+words being distinct; gather_sorted needs neither order nor distinct words
+(the table's probe reads one word for every row of a run).
+
+Each function returns, beside its result, the TPU kernel's window-overflow
+count: a device int32 zero here (no window exists to overflow), which the
+table keeps adding into `spilled` as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tsxcount_tpu_torch import _build
+from tsxcount_tpu_torch.ops.lanes import i32, u32
+
+
+def _live(col: torch.Tensor, dst2: torch.Tensor):
+    """(live mask, word address int64) of each element of dst2."""
+    d = u32(dst2)
+    addr = d >> 1
+    return ((d & 1) == 1) & (addr < col.shape[0]), addr
+
+
+def _check(name: str, col, dst2, val=None) -> torch.device:
+    dev = _build.check_columns(name, [col], (torch.int32,))
+    _build.check_columns(name, [dst2], (torch.int32,), device=dev)
+    if val is not None:
+        _build.check_columns(name, [val], (torch.int32,), dst2.shape[0], dev)
+    return dev
+
+
+def gather_sorted_plain(col: torch.Tensor, dst2: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of gather_sorted."""
+    live, addr = _live(col, dst2)
+    out = torch.where(live, col[torch.where(live, addr, 0)], 0)
+    return out, torch.zeros((), dtype=torch.int32, device=col.device)
+
+
+def gather_sorted(col: torch.Tensor, dst2: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """out[e] = col[dst2[e] >> 1] for odd dst2[e], else 0.
+
+    col: int32 [S] (uint32 bit patterns, a contiguous column region);
+    dst2: int32 [W].  Returns (out int32 [W], overflow int32 0-d zero).
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation); any other device raises.
+    """
+    dev = _check("gather_sorted", col, dst2)
+    if dev.type == "cpu":
+        return gather_sorted_plain(col, dst2)
+    _build.require_cuda("gather_sorted", dev)
+    out = torch.empty_like(dst2)
+    over = torch.zeros((), dtype=torch.int32, device=dev)
+    lib = _build.kernels()
+    rc = lib.tsx_gather_sorted(col.data_ptr(), col.shape[0], dst2.data_ptr(),
+                               dst2.shape[0], out.data_ptr(), _build.stream())
+    _build.check(rc, "gather_sorted")
+    _build.count_launch("gather_sorted")
+    return out, over
+
+
+def apply_sorted_unique_plain(col: torch.Tensor, dst2: torch.Tensor,
+                              val: torch.Tensor
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of apply_sorted_unique (also in place)."""
+    live, addr = _live(col, dst2)
+    a = addr[live]
+    col[a] = i32(u32(col[a]) + u32(val[live]))
+    return col, torch.zeros((), dtype=torch.int32, device=col.device)
+
+
+def apply_sorted_unique(col: torch.Tensor, dst2: torch.Tensor,
+                        val: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """col[dst2[e] >> 1] += val[e] for odd dst2[e], modulo 2^32, IN PLACE.
+
+    col: int32 [S] (uint32 bit patterns); dst2, val: int32 [W]; live
+    destinations distinct.  Returns (col itself, overflow int32 0-d zero).
+    The update is in place because the column is a region of the table's
+    whole slot array: the JAX package donates that array to the round, and
+    an out-of-place update here would copy the 2^26-word column twice per
+    column per round.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel on the current stream; any other device raises.
+    """
+    dev = _check("apply_sorted_unique", col, dst2, val)
+    if dev.type == "cpu":
+        return apply_sorted_unique_plain(col, dst2, val)
+    _build.require_cuda("apply_sorted_unique", dev)
+    over = torch.zeros((), dtype=torch.int32, device=dev)
+    lib = _build.kernels()
+    rc = lib.tsx_apply_sorted_unique(col.data_ptr(), col.shape[0],
+                                     dst2.data_ptr(), val.data_ptr(),
+                                     dst2.shape[0], _build.stream())
+    _build.check(rc, "apply_sorted_unique")
+    _build.count_launch("apply_sorted_unique")
+    return col, over

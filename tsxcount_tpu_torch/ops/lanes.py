@@ -29,6 +29,29 @@ def i32(x: torch.Tensor) -> torch.Tensor:
     return (((x & MASK32) ^ _SIGN32) - _SIGN32).to(torch.int32)
 
 
+def unpack_bits(keys: torch.Tensor, nbits: int,
+                dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(..., lanes) int32 bit patterns -> (..., nbits) bit planes (LSB
+    first).  An arithmetic shift of an int32 word leaves bit j of the
+    pattern at bit 0, so no widening is needed."""
+    sh = torch.arange(32, dtype=torch.int32, device=keys.device)
+    bits = (keys[..., :, None] >> sh) & 1                 # (..., lanes, 32)
+    flat = bits.reshape(*keys.shape[:-1], keys.shape[-1] * 32)
+    return flat[..., :nbits].to(dtype)
+
+
+def pack_bits(bits: torch.Tensor, lanes: int) -> torch.Tensor:
+    """(..., nbits) 0/1 values -> (..., lanes) int32 bit patterns (LSB
+    first)."""
+    pad = lanes * 32 - bits.shape[-1]
+    b = bits.to(torch.int64)
+    if pad:
+        b = torch.cat([b, b.new_zeros((*b.shape[:-1], pad))], dim=-1)
+    b = b.reshape(*b.shape[:-1], lanes, 32)
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return i32((b << sh).sum(dim=-1))
+
+
 def keys_equal(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lane-wise equality of (..., lanes) keys, reduced over the lanes."""
     return (a == b).all(dim=-1)
