@@ -12,7 +12,11 @@ non-zero and no result line is printed):
      seeded inputs at the main paths' shapes plus hard cases — exact
      equality (all outputs are integers) — with the kernel's, the plain
      version's and a yardstick PyTorch call's times, and the kernel's
-     bytes bound at the card's 3.35 TB/s;
+     bytes bound at the card's 3.35 TB/s; kernel 3's main and one-key
+     cases called 10 more times, bit-identical every time (its tiles
+     finish in a different order on every call), with its scratch bytes;
+     kernel 4 timed as the table calls it, one launch over a round's four
+     value columns, with the 32-byte sectors each column touches;
   4. end to end, sort backend: the seed-42 bench FASTQ (bench.py, 20,000
      reads) counted at k=14 with the CLI's defaults; totals, the full
      sorted export against an independent numpy count, point queries, the
@@ -20,9 +24,10 @@ non-zero and no result line is printed):
      must give the identical export;
   5. end to end, table backend: the same file at k=14, l=26 (totals,
      spill, fill factor, export and queries against the numpy count,
-     launch counts, the round widths, cold and warm times); at k=31, l=25
-     against a numpy count at k=31; and a small file counted on the card
-     and on the CPU, whose table states must be identical word for word;
+     launch counts, one kernel-4 launch per split round, the round
+     widths, cold and warm times); at k=31, l=25 against a numpy count at
+     k=31; and a small file counted on the card and on the CPU, whose
+     table states must be identical word for word;
 then the kernels' JSON line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Builds and data go to
 tsxcount_tpu_torch/build/ (gitignored).  No JAX is imported.
@@ -73,6 +78,8 @@ TABLE_KERNELS = ("gather_sorted", "apply_sorted_unique", "compact_flagged")
 TOTAL_KMERS = 18_750_197     # seed-42 bench FASTQ, k=14 windows
 DISTINCT_KMERS = 14_479_762  # and distinct k-mers
 INV14 = 1 << 28              # k=14 invalid constant (flag above 28 key bits)
+DEDUPE_REPEATS = 10          # kernel 3 race check: calls per repeated case
+DEDUPE_REPEATED = ("main", "one_key_sum_over_2^32")
 KERNELS = {
     "compact_flagged": ("tsxcount_tpu_torch/csrc/compact.cu",
                         "tsxcount_tpu/ops/pallas_compact.py:165"),
@@ -293,10 +300,16 @@ def check_merge_dedupe(results: dict) -> None:
                 f"merge_dedupe {case}: runs/valid {int(g_runs)}/"
                 f"{int(g_valid)} != {int(w_runs)}/{int(w_valid)}")
         err = max_err(got, want, int(w_runs))
+        m, n = a[0].numel(), b[0].numel()
         phase("kernel", name="merge_dedupe_sorted", case=case,
-              rows=a[0].numel() + b[0].numel(), n_keys=n_keys,
-              runs=int(w_runs), valid=int(w_valid), max_abs_err=err)
+              rows=m + n, n_keys=n_keys, runs=int(w_runs),
+              valid=int(w_valid), max_abs_err=err,
+              scratch_bytes=_build.kernels().tsx_merge_dedupe_scratch_bytes(
+                  n_keys, m, n))
         worst = max(worst, err)
+        if case in DEDUPE_REPEATED:
+            check_repeats(case, a, b, n_keys, inv_min, got,
+                          (int(w_runs), int(w_valid)))
         if case == "main":
             ms = cuda_ms(lambda: merge_dedupe_sorted(a, b, 1, INV14))
             plain_ms = cuda_ms(
@@ -310,6 +323,24 @@ def check_merge_dedupe(results: dict) -> None:
     results["merge_dedupe_sorted"] = dict(max_abs_err=worst, ms=ms,
                                           plain_ms=plain_ms,
                                           library_ms=None, bound_ms=bound)
+
+
+def check_repeats(case: str, a, b, n_keys: int, inv_min: int, first,
+                  stats: tuple[int, int]) -> None:
+    """Kernel 3's tiles finish in another order on every call (the tile
+    index comes from an atomic counter; the look-back waits on whichever
+    tiles are still open): DEDUPE_REPEATS more calls must give outputs and
+    stats bit-identical to the first call's."""
+    n_runs = stats[0]
+    for i in range(DEDUPE_REPEATS):
+        got, g_runs, g_valid = merge_dedupe_sorted(a, b, n_keys, inv_min)
+        same = ((int(g_runs), int(g_valid)) == stats and all(
+            torch.equal(g[:n_runs], f[:n_runs]) for g, f in zip(got, first)))
+        if not same:
+            raise AssertionError(f"merge_dedupe {case}: call {i + 2} differs "
+                                 f"from the first")
+    phase("kernel_repeats", name="merge_dedupe_sorted", case=case,
+          calls=DEDUPE_REPEATS, bit_identical=True)
 
 
 def check_store_junk_tail() -> int:
@@ -435,7 +466,10 @@ def check_apply_kernels(results: dict) -> None:
           elements=W_ROUND, max_abs_err=err)
     worst_a = max(worst_a, err)
 
-    # times at the main round's shape
+    # a table round at the main shape, all columns in one launch
+    worst_a = max(worst_a, check_apply_round(results, dsta))
+
+    # gather times at the main round's shape
     live_g = live_addr(dstg)
     words_g = torch.unique_consecutive(live_g).numel()
     idx_g = torch.where((dstg & 1) == 1, dstg >> 1, 0).to(torch.int64)
@@ -446,22 +480,60 @@ def check_apply_kernels(results: dict) -> None:
         library_ms=cuda_ms(lambda: torch.index_select(col, 0, idx_g)),
         # dst2 read, out written, each distinct live slot word read once
         bound_ms=bytes_ms(dstg.numel() * 8 + words_g * 4))
-    live_a = (dsta & 1) == 1
-    idx_a, val_a = live_addr(dsta), val[live_a]
-    scratch = col.clone()
+    results["apply_sorted_unique"]["max_abs_err"] = worst_a
+    phase("kernel_shape", name="gather_sorted", column_words=S_COL,
+          elements=W_ROUND, live_gather=live_g.numel(), words_gather=words_g)
+
+
+def round_values(dsta: torch.Tensor) -> list:
+    """Kernel 4's value columns of the k=14 table's round 0 into an empty
+    table, without the digit-2 column (as core/table.py passes them): every
+    live row wins its slot, so key word and used flag are non-zero there;
+    digit 0 is the count (1..999), digit 1 zero (counts below 2^20)."""
+    w = dsta.numel()
+    return [gpu(rng.integers(1, 1 << 28, w, dtype=np.uint32)),
+            gpu(rng.integers(1, 1000, w).astype(np.int32)),
+            torch.zeros(w, dtype=torch.int32, device=DEV),
+            torch.ones(w, dtype=torch.int32, device=DEV)]
+
+
+def check_apply_round(results: dict, dsta: torch.Tensor) -> int:
+    """Kernel 4 over the four value columns of one main-shape round, on
+    column regions of one flat slot array: exact against the plain
+    version, then timed beside one index_add_ on the flat array at
+    precomputed c * S + address (the yardstick) and the bound."""
+    vals = round_values(dsta)
+    n_cols = len(vals)
+    flat0 = gpu(rng.integers(0, 2**32, n_cols * S_COL, dtype=np.uint32))
+    regions = lambda f: [f[c * S_COL : (c + 1) * S_COL] for c in range(n_cols)]
+    got, want = flat0.clone(), flat0.clone()
+    apply_sorted_unique(regions(got), dsta, vals)
+    apply_sorted_unique_plain(regions(want), dsta, vals)
+    err = max_err((got,), (want,))
+    phase("kernel", name="apply_sorted_unique", case="round_4_columns",
+          elements=dsta.numel(), columns=n_cols, max_abs_err=err)
+    live = (dsta & 1) == 1
+    addr = live_addr(dsta)
+    idx = torch.cat([c * S_COL + addr for c in range(n_cols)])
+    lib_vals = torch.cat([v[live] for v in vals])
+    scratch = flat0.clone()
+    cols = regions(scratch)
+    # dst2 read once; per column its live values read; 4 B read and 4 B
+    # written per non-zero update
+    nonzero = [int((v[live] != 0).sum()) for v in vals]
+    sectors = [torch.unique_consecutive(addr[v[live] != 0] >> 3).numel()
+               for v in vals]
     results["apply_sorted_unique"] = dict(
-        max_abs_err=worst_a,
-        ms=cuda_ms(lambda: apply_sorted_unique(scratch, dsta, val)),
-        plain_ms=cuda_ms(lambda: apply_sorted_unique_plain(scratch, dsta,
-                                                           val)),
-        library_ms=cuda_ms(lambda: scratch.index_add_(0, idx_a, val_a)),
-        # dst2 read; per live element its value read and its slot word
-        # read and written
-        bound_ms=bytes_ms(dsta.numel() * 4 + idx_a.numel() * 12))
-    phase("kernel_shape", name="gather_sorted/apply_sorted_unique",
-          column_words=S_COL, elements=W_ROUND,
-          live_gather=live_g.numel(), words_gather=words_g,
-          live_apply=idx_a.numel())
+        ms=cuda_ms(lambda: apply_sorted_unique(cols, dsta, vals)),
+        plain_ms=cuda_ms(lambda: apply_sorted_unique_plain(cols, dsta, vals)),
+        library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, lib_vals)),
+        bound_ms=bytes_ms(dsta.numel() * 4 + n_cols * addr.numel() * 4
+                          + sum(nonzero) * 8))
+    phase("kernel_shape", name="apply_sorted_unique", column_words=S_COL,
+          elements=dsta.numel(), columns=n_cols, live=addr.numel(),
+          nonzero_updates=nonzero, sectors_32B=sectors,
+          sector_bytes_moved=2 * 32 * sum(sectors))
+    return err
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -631,6 +703,13 @@ def table_end_to_end(path: Path, want_keys, want_counts) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} not launched on the "
                                  f"table path")
+    # kernel 4 updates every column of a split round in one launch
+    if launches["apply_sorted_unique"] != len(widths):
+        raise AssertionError(
+            f"apply_sorted_unique launched {launches['apply_sorted_unique']} "
+            f"times in {len(widths)} split rounds")
+    phase("e2e_table", run="cold", split_rounds=len(widths),
+          apply_sorted_unique_launches=launches["apply_sorted_unique"])
     check_queries(counter, want_keys, want_counts)
     counter.reset()
     widths.clear()

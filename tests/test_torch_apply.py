@@ -106,6 +106,40 @@ def test_apply_adds_wrap_past_2_32():
     _apply_both(slots, dst2, val)
 
 
+def test_apply_columns_in_one_call_match_jax_per_column():
+    """One call over five column regions of one flat slot array equals the
+    JAX kernel applied column by column (the TPU table's loop): non-zero,
+    all-zero, partly zero, wrapping and 0/1 value columns."""
+    rng = np.random.default_rng(21)
+    n_cols = 5
+    flat = rng.integers(2**31, 2**32, size=n_cols * S, dtype=np.uint32)
+    live = np.sort(rng.choice(S, 1500, replace=False)).astype(np.int64)
+    dst2 = np.sort(np.concatenate([live * 2 + 1,
+                                   rng.integers(0, S, 400) * 2])
+                   ).astype(np.int32)
+    w = len(dst2)
+    vals = [rng.integers(0, 2**32, size=w, dtype=np.uint32),
+            np.zeros(w, np.uint32),
+            np.where(rng.random(w) < 0.5, rng.integers(1, 1000, w), 0
+                     ).astype(np.uint32),
+            rng.integers(2**31, 2**32, size=w, dtype=np.uint32),
+            (rng.random(w) < 0.5).astype(np.uint32)]
+    want = flat.copy()
+    for c, val in enumerate(vals):
+        d, v = _pad(dst2, val)
+        out, over = pa.apply_sorted_unique(
+            jnp.asarray(want[c * S : (c + 1) * S]), jnp.asarray(d),
+            jnp.asarray(v), tile=TILE, u_win=U_WIN, interpret=True)
+        assert int(over) == 0
+        want[c * S : (c + 1) * S] = np.asarray(out)
+    got = _t(flat).clone()
+    cols = [got[c * S : (c + 1) * S] for c in range(n_cols)]
+    res, zero = apply_sorted_unique(cols, _t(_pad(dst2)),
+                                    [_t(_pad(dst2, v)[1]) for v in vals])
+    assert res is cols and int(zero) == 0  # in place
+    assert np.array_equal(got.numpy().view(np.uint32), want)
+
+
 @pytest.mark.parametrize("seed", range(2))
 def test_gather_random(seed):
     rng = np.random.default_rng(seed)
@@ -152,3 +186,15 @@ def test_gather_every_row_equals_heads_filled_forward():
                                                   0))]
     got, _ = gather_sorted(_t(slots), _t(_pad((2 * pos + 1).astype(np.int32))))
     assert np.array_equal(got.numpy().view(np.uint32)[: len(pos)], filled)
+
+
+def test_apply_column_sets_checked():
+    """One value column per slot column, 1..16 columns of one length."""
+    col = torch.zeros(S, dtype=torch.int32)
+    dst2 = val = torch.ones(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        apply_sorted_unique([col] * 17, dst2, [val] * 17)
+    with pytest.raises(ValueError):
+        apply_sorted_unique([col, col.clone()], dst2, [val])
+    with pytest.raises(ValueError):
+        apply_sorted_unique([col, col[:-1]], dst2, [val, val])

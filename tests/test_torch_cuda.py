@@ -153,6 +153,59 @@ def test_gather_and_apply_kernels(dev, s, n_live, n_dead, tail):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n_cols", [1, 5, 12])
+def test_apply_columns_in_one_launch(dev, n_cols):
+    """Column regions of one flat array in one launch, with all-zero, partly
+    zero and wrapping value columns, against the plain version."""
+    rng = np.random.default_rng(n_cols)
+    s, w = 200000, 150000
+    live = np.sort(rng.choice(s, 60000, replace=False))
+    dst2 = np.sort(np.concatenate([2 * live + 1,
+                                   2 * rng.integers(0, s, w - len(live))]))
+    dst2 = _t(dst2.astype(np.int32), dev)
+    flat = _t(rng.integers(0, 2**32, n_cols * s, dtype=np.uint32), dev)
+    vals = [_t(rng.integers(2**31, 2**32, w, dtype=np.uint32), dev)
+            * (c % 3 != 1)
+            * _t((rng.random(w) < 0.5 + 0.5 * (c % 3 == 0)).astype(np.int32),
+                 dev)
+            for c in range(n_cols)]
+    out = []
+    for fn in (apply_sorted_unique, apply_sorted_unique_plain):
+        got = flat.clone()
+        fn([got[c * s : (c + 1) * s] for c in range(n_cols)], dst2, vals)
+        out.append(got)
+    assert torch.equal(out[0], out[1])
+
+
+def _dedupe_run(rng, k, n_keys, hi, n_inv, dev):
+    keys = _sorted_run(rng, k, n_keys, hi)
+    cnt = rng.integers(2**31, 2**32, k)
+    keys[k - n_inv :] = 0
+    keys[k - n_inv :, 0] = INV_MIN
+    cnt[k - n_inv :] = 0
+    return tuple(_t(keys[:, j], dev) for j in range(n_keys)) + (_t(cnt, dev),)
+
+
+@pytest.mark.parametrize("m,n,n_keys,hi", [
+    (3_000_000, 1_000_000, 1, 2**20),  # ~2000 tiles: the look-back spans many
+    (400_000, 300_000, 1, 1),          # one key over every tile
+    (500_000, 250_000, 8, 2),          # 8 key words, 1024-row tiles
+])
+def test_merge_dedupe_repeats_bit_identical(dev, m, n, n_keys, hi):
+    """Tiles finish in a different order on every call: five calls must
+    give identical outputs and stats, equal to the plain version's."""
+    rng = np.random.default_rng(m + n_keys)
+    a = _dedupe_run(rng, m, n_keys, hi, 17, dev)
+    b = _dedupe_run(rng, n, n_keys, hi, 5, dev)
+    want, w_runs, w_valid = merge_dedupe_sorted_plain(a, b, n_keys, INV_MIN)
+    r = int(w_runs)
+    for _ in range(5):
+        got, g_runs, g_valid = merge_dedupe_sorted(a, b, n_keys, INV_MIN)
+        assert (int(g_runs), int(g_valid)) == (r, int(w_valid))
+        for g, w in zip(got, want):
+            assert torch.equal(g[:r], w[:r])
+
+
 def test_gather_every_row_of_long_runs(dev):
     """The table's probe: every row of a run reads the same slot word."""
     rng = np.random.default_rng(3)

@@ -222,3 +222,11 @@ def test_merge_dedupe_all_invalid_b_side():
     a = _make_run(rng, 2048, 2, 0, 500, 1000)
     b = _make_run(rng, 1024, 2, 1024, 500, 1000)
     _check_merge_dedupe(a, b, 2)
+
+
+@pytest.mark.parametrize("m,n", [(0, 2048), (2048, 0)])
+def test_merge_dedupe_one_side_empty(m, n):
+    rng = np.random.default_rng(m + 3 * n)
+    a = _make_run(rng, m, 1, min(m, 13), 500, 2**32 - 1)
+    b = _make_run(rng, n, 1, min(n, 13), 500, 2**32 - 1)
+    _check_merge_dedupe(a, b, 1)

@@ -2,10 +2,17 @@
 // (tsxcount_tpu_torch/csrc) for the CPU and run them: every CUDA thread is a
 // std::thread, blocks run one after another, __shared__ becomes a function
 // static (shared by the threads of the running block), __syncthreads is a
-// std::barrier over the block and __shfl_up_sync one over the warp.  Only
-// what those kernels use is provided.  It checks the kernels' logic, not
-// their speed, and it cannot tell __host__ from __device__ code: nvcc on the
-// card stays the judge of what compiles.  Used by tools/cuda_emu/emulate.py.
+// std::barrier over the block and the warp intrinsics (__shfl_*_sync,
+// __ballot_sync) one over the warp.  Only what those kernels use is
+// provided.  It checks the kernels' logic, not their speed, and it cannot
+// tell __host__ from __device__ code: nvcc on the card stays the judge of
+// what compiles.  Used by tools/cuda_emu/emulate.py.
+//
+// Blocks run one after another, in blockIdx order.  So a block that takes
+// its tile from an atomic counter gets tile blockIdx.x, and a decoupled
+// look-back (kernel 3) finds every earlier tile's inclusive count already
+// published: it never spins here, and what runs is its single-window path.
+// Races between blocks are judged on the card only.
 #pragma once
 
 #include <algorithm>
@@ -80,16 +87,49 @@ inline void launch(dim3 g, dim3 b, std::function<void()> body) {
 
 inline void __syncthreads() { emu::current->block_bar->arrive_and_wait(); }
 
-template <class T>
-T __shfl_up_sync(unsigned, T v, int d) {
+namespace emu {
+// Every lane of the warp posts v; lane `from(lane)` (or the lane itself
+// where that is out of [0, 32)) is read back.
+template <class T, class F>
+T warp_exchange(T v, F from) {
   const unsigned lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  auto& buf = emu::current->warp_buf[w];
+  auto& buf = current->warp_buf[w];
   int64_t raw = 0;
   memcpy(&raw, &v, sizeof(T));
   buf[lane] = raw;
-  emu::current->warp_bars[w]->arrive_and_wait();
+  current->warp_bars[w]->arrive_and_wait();
   T r = v;
-  if (static_cast<int>(lane) >= d) memcpy(&r, &buf[lane - d], sizeof(T));
-  emu::current->warp_bars[w]->arrive_and_wait();
+  const int src = from(static_cast<int>(lane));
+  if (src >= 0 && src < 32) memcpy(&r, &buf[src], sizeof(T));
+  current->warp_bars[w]->arrive_and_wait();
   return r;
+}
+}  // namespace emu
+
+template <class T>
+T __shfl_up_sync(unsigned, T v, int d) {
+  return emu::warp_exchange(v, [d](int lane) { return lane - d; });
+}
+
+template <class T>
+T __shfl_down_sync(unsigned, T v, int d) {
+  return emu::warp_exchange(v, [d](int lane) { return lane + d; });
+}
+
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const unsigned w = threadIdx.x >> 5;
+  auto& buf = emu::current->warp_buf[w];
+  buf[threadIdx.x & 31] = pred ? 1 : 0;
+  emu::current->warp_bars[w]->arrive_and_wait();
+  unsigned mask = 0;
+  for (int i = 0; i < 32; ++i) mask |= buf[i] ? 1u << i : 0u;
+  emu::current->warp_bars[w]->arrive_and_wait();
+  return mask;
+}
+
+inline int __ffs(int x) { return __builtin_ffs(x); }
+
+template <class T>
+T atomicAdd(T* p, T v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }

@@ -135,10 +135,17 @@ def main() -> int:
             assert torch.equal(g, w), ("merge", m, n, nk)
     print("merge_sorted: ok")
 
+    # kernel 3: tiles of 2048 rows (1024 beyond 3 key words); the last
+    # three cases cross 16 tiles or more, one of them with a single key
+    # over every tile
     inv_min = 1 << 30
     for m, n, nk, hi, n_inv in [(4096, 2048, 1, 3000, 37),
                                 (6000, 3000, 2, 30, 0), (9000, 100, 1, 2, 5),
-                                (0, 10, 1, 5, 3), (3, 0, 3, 2, 0)]:
+                                (0, 10, 1, 5, 3), (3, 0, 3, 2, 0),
+                                (0, 5000, 2, 40, 7), (2500, 0, 1, 90, 0),
+                                (40000, 30000, 1, 2**30, 100),
+                                (40000, 30000, 1, 1, 0),
+                                (12000, 8000, 8, 2, 11)]:
         def with_invalid(k):
             cols = run(k, nk, hi, lambda q: (
                 t(rng.integers(2**31, 2**32 - 1, q)),))
@@ -185,11 +192,24 @@ def main() -> int:
                                      out.data_ptr(), None) == 0
         assert torch.equal(out, gather_sorted_plain(col, dst2)[0]), (
             "gather", s, n_live)
-        got = col.clone()
-        assert lib.tsx_apply_sorted_unique(got.data_ptr(), s, dst2.data_ptr(),
-                                           val.data_ptr(), n, None) == 0
-        want = apply_sorted_unique_plain(col.clone(), dst2, val)[0]
-        assert torch.equal(got, want), ("apply", s, n_live)
+        # kernel 4 with one column, and with five regions of one flat
+        # array: random values, zeros, some zeros, wrapping adds, 0/1
+        flat = t(rng.integers(2**31, 2**32, 5 * s, dtype=np.uint32))
+        vals = (val, torch.zeros_like(val),
+                val * t((rng.random(n) < 0.5).astype(np.int32)),
+                t(rng.integers(2**31, 2**32, n, dtype=np.uint32)),
+                t((rng.random(n) < 0.5).astype(np.int32)))
+        for n_cols in (1, 5):
+            got = flat.clone()
+            cols = [got[c * s : (c + 1) * s] for c in range(n_cols)]
+            assert lib.tsx_apply_sorted_unique(
+                P(cols), P(vals[:n_cols]), n_cols, s, dst2.data_ptr(), n,
+                None) == 0
+            want = flat.clone()
+            apply_sorted_unique_plain(
+                [want[c * s : (c + 1) * s] for c in range(n_cols)], dst2,
+                vals[:n_cols])
+            assert torch.equal(got, want), ("apply", s, n_live, n_cols)
     # the table's probe: every row of a run reads the same word
     s = 2048
     col = t(rng.integers(0, 2**32, s, dtype=np.uint32))

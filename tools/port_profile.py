@@ -13,11 +13,26 @@ device time), the part's wall time and the device's busy share over it;
 writes the tables and a Chrome trace of the end-to-end part to DIR
 (default tsxcount_tpu_torch/build/profile).  Needs a CUDA device; imports
 no JAX.
+
+    python3 tools/port_profile.py --ab OTHER_TREE
+
+instead times kernels 3 and 4 at their main-path shapes in OTHER_TREE (an
+unpacked checkout, e.g. the parent commit's `git archive`) and in this
+tree, in the order other, this, this, other, each in its own process
+(`--time-kernels TREE`, which imports that tree's tsxcount_tpu_torch and
+builds its kernels), and prints one JSON line per run: kernel 3 on a
+2^26-row store run + 2^25-row batch run (k=14), and kernel 4 on one split
+round of 2^24 destinations into the k=14, l=26 table's 2^26-slot columns,
+once as the per-column loop (five one-column calls, every tree has it) and
+once as one call over the four columns the table passes (where the tree's
+wrapper takes a column sequence).  Medians of CUDA-event-timed calls.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -27,13 +42,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(REPO))
-
-import bench  # noqa: E402
-from tsxcount_tpu_torch import KmerCounter, _build  # noqa: E402
-from tsxcount_tpu_torch.ops.compact import compact_flagged  # noqa: E402
-from tsxcount_tpu_torch.ops.merge import merge_sorted  # noqa: E402
-from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted  # noqa: E402
 
 
 def device_busy_us(prof) -> float:
@@ -65,7 +73,7 @@ def traced(name: str, fn, out: Path, trace: bool = False) -> None:
         wall = time.perf_counter() - t0
     busy = device_busy_us(prof) / 1e6
     table = prof.key_averages().table(sort_by="device_time_total",
-                                      row_limit=25)
+                                      row_limit=60)
     head = (f"== {name}: wall {wall:.6f} s, device busy {busy:.6f} s "
             f"({100 * busy / wall:.1f}%)")
     print(head)
@@ -75,13 +83,130 @@ def traced(name: str, fn, out: Path, trace: bool = False) -> None:
         prof.export_chrome_trace(str(out / f"{name}.trace.json"))
 
 
+def median_ms(fn, reps: int = 21) -> float:
+    """Median device time of fn() over reps calls after one warm-up, each
+    call between its own pair of CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for t0, t1 in events:
+        t0.record()
+        fn()
+        t1.record()
+    torch.cuda.synchronize()
+    return float(np.median([t0.elapsed_time(t1) for t0, t1 in events]))
+
+
+def time_kernels(tree: Path) -> dict:
+    """Kernels 3 and 4 of the tsxcount_tpu_torch in `tree`, at their
+    main-path shapes, on data made on the card from fixed seeds (the same
+    in every tree)."""
+    sys.path.insert(0, str(tree))
+    from tsxcount_tpu_torch import _build
+    from tsxcount_tpu_torch.ops import apply as apply_mod
+    from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted
+
+    if Path(_build.__file__).resolve().parents[1] != tree.resolve():
+        raise RuntimeError(f"imported {_build.__file__}, not from {tree}")
+    dev = torch.device("cuda")
+    _build.kernels()
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    res = {"tree": str(tree)}
+
+    # kernel 3: store run (unique keys, invalid tail) + batch run, k=14
+    inv14 = 1 << 28
+    s_keys = torch.unique(torch.randint(0, 1 << 28, (1 << 26,), device=dev,
+                                        generator=g))
+    store = torch.full((1 << 26,), inv14, dtype=torch.int64, device=dev)
+    store[: s_keys.numel()] = s_keys
+    s_cnt = torch.randint(1, 1000, (1 << 26,), device=dev, generator=g)
+    s_cnt[s_keys.numel() :] = 0
+    batch = torch.sort(torch.randint(0, 1 << 28, (1 << 25,), device=dev,
+                                     generator=g)).values
+    batch[-(1 << 20) :] = inv14
+    b_cnt = torch.randint(1, 100, (1 << 25,), device=dev, generator=g)
+    b_cnt[-(1 << 20) :] = 0
+    a, b = (store.to(torch.int32), s_cnt), (batch.to(torch.int32), b_cnt)
+    _, n_runs, _ = merge_dedupe_sorted(a, b, 1, inv14)
+    res["k3_rows"] = (1 << 26) + (1 << 25)
+    res["k3_runs"] = int(n_runs)
+    res["k3_ms"] = median_ms(lambda: merge_dedupe_sorted(a, b, 1, inv14))
+    del store, s_cnt, batch, b_cnt, a, b, s_keys
+
+    # kernel 4: one split round of width 2^24, 12,582,912 active rows on
+    # uniform slots of 2^26, the last row of each slot's run live
+    s_col, width, active = 1 << 26, 1 << 24, 12 << 20
+    pos = torch.sort(torch.randint(0, s_col, (active,), device=dev,
+                                   generator=g)).values
+    end = torch.ones_like(pos, dtype=torch.bool)
+    end[:-1] = pos[1:] != pos[:-1]
+    dsta = torch.cat([torch.where(end, 2 * pos + 1, 2 * pos),
+                      torch.full((width - active,), 1 << 30, device=dev,
+                                 dtype=torch.int64)]).to(torch.int32)
+    # key word, digits 0-2, used flag of a round into an empty table
+    vals = [torch.randint(1, 1 << 28, (width,), device=dev, generator=g,
+                          dtype=torch.int32),
+            torch.randint(1, 1000, (width,), device=dev, generator=g,
+                          dtype=torch.int32),
+            torch.zeros(width, dtype=torch.int32, device=dev),
+            torch.zeros(width, dtype=torch.int32, device=dev),
+            torch.ones(width, dtype=torch.int32, device=dev)]
+    flat = torch.zeros(5 * s_col, dtype=torch.int32, device=dev)
+    cols = [flat[c * s_col : (c + 1) * s_col] for c in range(5)]
+    res["k4_live"] = int(end.sum())
+
+    def loop():
+        for col, val in zip(cols, vals):
+            apply_mod.apply_sorted_unique(col, dsta, val)
+
+    res["k4_per_column_loop_ms"] = median_ms(loop)
+    res["k4_round_ms"] = None
+    if hasattr(apply_mod, "MAX_APPLY_COLS"):  # one call over the columns
+        keep = [0, 1, 2, 4]  # the table leaves out the digit-2 column
+        sub_c, sub_v = [cols[c] for c in keep], [vals[c] for c in keep]
+        res["k4_round_ms"] = median_ms(
+            lambda: apply_mod.apply_sorted_unique(sub_c, dsta, sub_v))
+    res["device"] = torch.cuda.get_device_name(0)
+    return res
+
+
+def ab(other: Path) -> int:
+    """other, this, this, other: one --time-kernels process each."""
+    me = Path(__file__).resolve()
+    for tree in (other, REPO, REPO, other):
+        proc = subprocess.run(
+            [sys.executable, str(me), "--time-kernels", str(tree)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr[-4000:])
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=str(_build.BUILD_DIR / "profile"))
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--ab", type=Path, default=None)
+    ap.add_argument("--time-kernels", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
-    out = Path(args.out)
+    if args.time_kernels is not None:
+        print(json.dumps(time_kernels(args.time_kernels)))
+        return 0
+    if args.ab is not None:
+        return ab(args.ab)
+    sys.path.insert(0, str(REPO))
+    import bench
+    from tsxcount_tpu_torch import KmerCounter, _build
+    from tsxcount_tpu_torch.ops.compact import compact_flagged
+    from tsxcount_tpu_torch.ops.merge import merge_sorted
+    from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted
+
+    out = Path(args.out or _build.BUILD_DIR / "profile")
     out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)

@@ -55,7 +55,7 @@ _SIGNATURES = {
     "tsx_merge_dedupe_sorted": (_INT, [_P, _P, _P, _INT, _I64, _I64,
                                        ctypes.c_uint32, _P, _P, _P]),
     "tsx_gather_sorted": (_INT, [_P, _I64, _P, _I64, _P, _P]),
-    "tsx_apply_sorted_unique": (_INT, [_P, _I64, _P, _P, _I64, _P]),
+    "tsx_apply_sorted_unique": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
     "tsx_error_string": (ctypes.c_char_p, [_INT]),
 }
 

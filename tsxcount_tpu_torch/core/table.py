@@ -19,12 +19,14 @@ are [key lanes | 3 count digits | used flag].
 A batch of distinct keys is inserted in reprobe rounds.  A round sorts the
 rows by probed slot (stable), reads every active row's slot (kernel 5; the
 JAX package gathers at run heads only, as its TPU gather needs distinct
-addresses, and fills the value forward), and arbitrates: a row whose key is in the
-slot matches, and an empty slot goes to the LAST contender of its run.  Kernel 4 then adds one combined row per resolved contender into
-every column, and kernel 1 compacts the unresolved rows to a prefix whose
-size the host reads to size the next round.  The narrow tail of an insert
-(`residue_phase`) resolves in plain PyTorch, where the lowest original
-index wins an empty slot, as in the JAX package.
+addresses, and fills the value forward), and arbitrates: a row whose key
+is in the slot matches, and an empty slot goes to the LAST contender of
+its run.  Kernel 4 then adds one combined row per resolved contender into
+every column, in one launch per round, and kernel 1 compacts the
+unresolved rows to a prefix whose size the host reads to size the next
+round.  The narrow tail of an insert (`residue_phase`) resolves in plain
+PyTorch, where the lowest original index wins an empty slot, as in the JAX
+package.
 
 The slot array is updated IN PLACE by every round, the tail and the
 renormalisation: a returned TableState shares the array of the state it
@@ -223,13 +225,14 @@ class QuotientTable:
         winner = active_s & ~used_s & run_end
         resolved = match_s | winner
 
-        # one combined add-row per resolved contender (kernel 4, in place)
+        # one combined add-row per resolved contender, every column in one
+        # launch (kernel 4, in place); the digit-2 column would only add
+        # zeros, so it is left out
         val_cols = (
             [torch.where(winner, slotkey0_s, 0)]
             + [torch.where(winner, cleared_s[j], 0) for j in range(1, lanes)]
             + [counts_s & COUNT_DIGIT_MASK,
                (counts_s >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK,
-               torch.zeros_like(counts_s),
                winner.to(torch.int32)]
         )
         dsta = torch.where(
@@ -237,10 +240,10 @@ class QuotientTable:
             torch.where(resolved, (safe_pos << 1) | 1, safe_pos << 1),
             DEAD,
         ).to(torch.int32)
-        for c in range(cols):
-            _, ov = apply_sorted_unique(self._col(state.slots, c), dsta,
-                                        val_cols[c].contiguous())
-            spilled = spilled + ov
+        _, ov = apply_sorted_unique(
+            [self._col(state.slots, c) for c in range(cols) if c != lanes + 2],
+            dsta, [v.contiguous() for v in val_cols])
+        spilled = spilled + ov
 
         new_state = TableState(
             slots=state.slots,

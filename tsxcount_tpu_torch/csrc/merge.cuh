@@ -1,5 +1,5 @@
-// Device code of the stable merge of two sorted runs (kernel 2), shared
-// with the fused merge-dedupe (kernel 3).
+// Device code of the stable merge of two sorted runs (kernel 2); kernel 3
+// (merge_dedupe.cu) shares the partition and the key compares.
 //
 // Keys are the first NK columns of each run: uint32 words, most significant
 // first, compared as UNSIGNED values (a signed compare misorders keys whose
@@ -47,8 +47,8 @@ __device__ __forceinline__ bool key_le(const uint32_t (&a)[NK],
 }
 
 // keys[.][x] <= keys[.][y] over the staged tile keys.
-template <int NK>
-__device__ __forceinline__ bool staged_le(const uint32_t (&keys)[NK][kMergeTile],
+template <int NK, int T>
+__device__ __forceinline__ bool staged_le(const uint32_t (&keys)[NK][T],
                                           int x, int y) {
 #pragma unroll
   for (int c = 0; c < NK; ++c) {
@@ -57,13 +57,15 @@ __device__ __forceinline__ bool staged_le(const uint32_t (&keys)[NK][kMergeTile]
   return true;
 }
 
+// a_starts[t] = A rows before output row t * tile, for t < n_diags.
 template <int NK>
 __global__ void merge_partition_kernel(ColSet a, ColSet b, int64_t m,
                                        int64_t n, int64_t n_diags,
+                                       int64_t tile,
                                        int64_t* __restrict__ a_starts) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= n_diags) return;
-  const int64_t diag = min64(t * kMergeTile, m + n);
+  const int64_t diag = min64(t * tile, m + n);
   int64_t lo = max64(0, diag - n);
   int64_t hi = min64(diag, m);
   uint32_t ka[NK], kb[NK];
@@ -144,7 +146,7 @@ void launch_merge_nk(const ColSet& a, const ColSet& b, const ColSet& out,
   const int64_t n_diags = tiles + 1;
   merge_partition_kernel<NK>
       <<<static_cast<unsigned>(ceil_div(n_diags, 256)), 256, 0, stream>>>(
-          a, b, m, n, n_diags, a_starts);
+          a, b, m, n, n_diags, kMergeTile, a_starts);
   merge_tile_kernel<NK><<<static_cast<unsigned>(tiles), kMergeThreads, 0,
                           stream>>>(a, b, out, m, n, a_starts);
 }

@@ -6,21 +6,52 @@
 // network, run flags, a carry-aware segmented sum and a butterfly compaction
 // inside each tile, and carries the open run's key, its partial sum and the
 // output frontier in SMEM from one SEQUENTIAL grid step to the next.  Blocks
-// on this card run in any order and carry nothing, so the reduction is
-// rebuilt from order-free passes:
-//   1. merge both runs into scratch with kernel 2's device code (merge.cuh);
-//   2. an inclusive 64-bit prefix sum S of the merged counts, with a flag on
-//      every row that ends a run of equal keys (sum_counts_kernel, the tile
-//      scan of compact.cuh, prefix_and_ends_kernel);
-//   3. compact the run-end rows' keys and S with kernel 1's device code;
-//   4. each run's total is the difference of consecutive compacted S values
-//      (run_totals_kernel) — exact modulo 2^64 at any fan-in, so one key may
-//      span any number of tiles.
+// on this card run in any order and carry nothing, so the carry becomes a
+// scan across blocks, and the merged rows never reach device memory:
+//   1. merge_partition_kernel (merge.cuh) splits the output into tiles of
+//      T rows by the merge-path search;
+//   2. merge_dedupe_kernel: a block takes the next tile from a global
+//      counter, stages its A and B slices (keys and counts) in shared
+//      memory, and each thread merges its rows straight into registers,
+//      marking each row that starts a run (its key differs from the row
+//      before; at the tile's first row, the row just before the diagonal,
+//      the larger of A[a0-1] and B[b0-1]).  A block-wide scan of (heads,
+//      sum since the last head) under the reduce-by-key operator
+//          (n1, s1) + (n2, s2) = (n1 + n2, n2 > 0 ? s2 : s1 + s2)
+//      gives every row its in-tile sum and the tile's aggregate, and a
+//      decoupled look-back over the earlier tiles' head counts gives the
+//      heads before the tile.  Each row that ends a run then knows its
+//      run's index (heads so far - 1); the tile's run ends are staged in
+//      shared memory and written out as one contiguous, coalesced range,
+//      each with the sum of its rows in this tile.  The tile holding the
+//      last row writes the stats;
+//   3. fix_reduce_kernel and fix_apply_kernel: a run that began in an
+//      earlier tile gets the sums of its rows there (the trailing sum of
+//      the last tile with a head before it, plus the whole sums of the
+//      tiles between), from a two-level reduce-by-key scan over the tiles'
+//      (head, sum); exact modulo 2^64, so one key may span any number of
+//      tiles.
 //
-// Bound: device-memory bandwidth.  The merged rows make a round trip through
-// device memory (about 4 passes over M+N rows of n_keys + 2 words); keeping
-// them on chip, e.g. with a decoupled look-back over (open key, partial sum,
-// emitted count), is a later, measured change.
+// Where a look-back goes wrong, and what this one does about it:
+//   * forward progress: the tile index comes from an atomic counter, zeroed
+//     on every call, not from blockIdx, so a block only waits on tiles that
+//     running blocks hold, and each of those publishes its aggregate before
+//     it waits itself;
+//   * publication order: a tile's status is ONE 64-bit word, its flag
+//     (aggregate or inclusive) in the top bits and the head count below,
+//     stored and loaded whole (volatile), so no reader sees a flag without
+//     its value and no fence is needed.  Carrying the 64-bit sums in the
+//     look-back too took a separate flag, a release store and a second
+//     load per window: 1.62 ms on an H100 at the main case, against
+//     1.39 ms with one word;
+//   * shared memory: the tile is 2048 rows up to 3 key words and 1024 rows
+//     beyond (at most 40 KB at 8 key words, under the 48 KB of static shared
+//     memory, four blocks on each SM).
+//
+// Bound: device-memory bandwidth.  Each input row is read once (keys and
+// count, coalesced), each run written once (coalesced); the merge-path
+// searches, the tile statuses and the fix-ups are O(tiles).  Scratch is
+// O(tiles).
 //
 // Contract (ops/merge_dedupe.py): a and b hold n_keys (1..8) uint32 key words,
 // most significant first, then one int64 count column; both runs ascending
@@ -30,88 +61,431 @@
 // unwritten); stats[0] = n_runs, stats[1] = n_runs less the trailing invalid
 // run if there is one.
 
-#include "compact.cuh"
 #include "merge.cuh"
 
 namespace tsx {
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-    sum_counts_kernel(const int64_t* __restrict__ cnt, int64_t n,
-                      int64_t* __restrict__ tile_sums) {
-  __shared__ int64_t warp_sums[2 * kThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  int64_t s = 0;
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j * kThreads + threadIdx.x;
-    if (i < n) s += cnt[i];
-  }
-  int64_t total;
-  block_inclusive_scan<kThreads>(s, warp_sums, 0, &total);
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+constexpr int kDedupeThreads = 256;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Rows a thread merges at n_keys key words; the tile is kDedupeThreads
+// times that.
+__host__ __device__ constexpr int dedupe_items(int n_keys) {
+  return n_keys <= 3 ? 8 : 4;
 }
 
-// cnt becomes its inclusive prefix sum (in place: each row is read and
-// written by one thread), in kItems rounds of kThreads consecutive rows;
-// ends[i] = 1 where row i ends a run of equal keys.  `keys` holds the
-// n_keys merged key columns.
-__global__ void __launch_bounds__(kThreads)
-    prefix_and_ends_kernel(ColSet keys, int64_t* __restrict__ cnt, int64_t n,
-                           const int64_t* __restrict__ tile_offsets,
-                           int32_t* __restrict__ ends) {
-  __shared__ int64_t warp_sums[2 * kThreads / 32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  int64_t run = tile_offsets[blockIdx.x];
-  for (int j = 0; j < kItems; ++j) {
-    const int64_t i = base + j * kThreads + threadIdx.x;
-    const int64_t v = i < n ? cnt[i] : 0;
-    int64_t round_total;
-    const int64_t incl = block_inclusive_scan<kThreads>(v, warp_sums, j,
-                                                        &round_total);
-    if (i < n) {
-      cnt[i] = run + incl;
-      bool end = i + 1 == n;
+// A reduce-by-key value: n run heads, s the counts' sum since the last head.
+struct Rbk {
+  int64_t n;
+  uint64_t s;
+};
+
+__device__ __forceinline__ Rbk rbk(const Rbk& x, const Rbk& y) {  // x, then y
+  return {x.n + y.n, y.n > 0 ? y.s : x.s + y.s};
+}
+
+// A tile's status word: 0 until published, then the flag in the top two
+// bits and the head count (aggregate, or inclusive of every earlier tile)
+// below.
+constexpr uint64_t kAggregate = uint64_t(1) << 62;
+constexpr uint64_t kInclusive = uint64_t(2) << 62;
+constexpr uint64_t kCountMask = kAggregate - 1;
+
+__device__ __forceinline__ void publish(uint64_t* status, int64_t t,
+                                        uint64_t flag, int64_t heads) {
+  *reinterpret_cast<volatile uint64_t*>(status + t) =
+      flag | static_cast<uint64_t>(heads);
+}
+
+// Exclusive scan of one Rbk per thread over a block of NT threads; *total
+// gets the block's aggregate.  One barrier; every thread must call it,
+// once.
+template <int NT>
+__device__ __forceinline__ Rbk block_exclusive_rbk(Rbk v, Rbk* warp_sums,
+                                                   Rbk* total) {
+  constexpr int kWarps = NT / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
-      for (int c = 0; c < kMaxKeys; ++c) {
-        if (c >= keys.n || end) break;
-        const int32_t* col = reinterpret_cast<const int32_t*>(keys.p[c]);
-        end = col[i] != col[i + 1];
+  for (int d = 1; d < 32; d <<= 1) {
+    const Rbk y{__shfl_up_sync(kFullWarp, v.n, d),
+                __shfl_up_sync(kFullWarp, v.s, d)};
+    if (lane >= d) v = rbk(y, v);
+  }
+  if (lane == 31) warp_sums[warp] = v;
+  __syncthreads();
+  Rbk before{0, 0};
+  Rbk all{0, 0};
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before = rbk(before, warp_sums[w]);
+    all = rbk(all, warp_sums[w]);
+  }
+  *total = all;
+  Rbk left{__shfl_up_sync(kFullWarp, v.n, 1),
+           __shfl_up_sync(kFullWarp, v.s, 1)};
+  if (lane == 0) left = Rbk{0, 0};
+  return rbk(before, left);
+}
+
+// The run heads before tile t > 0, by the 32 lanes of one warp: lane i
+// reads tile base - i's status, waiting while it is 0; the counts up to
+// the nearest inclusive one are summed, and the walk goes on 32 tiles
+// further back if the window held none.  Lane 0's result counts.  (Two,
+// four or eight tiles a lane measured slower on an H100: a wider window
+// waits on more tiles that are still being merged.)
+__device__ int64_t look_back(const uint64_t* status, int64_t t) {
+  const int lane = threadIdx.x & 31;
+  int64_t before = 0;
+  for (int64_t base = t - 1;; base -= 32) {
+    const int64_t j = base - lane;
+    uint64_t w = kInclusive;  // before tile 0: nothing, as an inclusive
+    if (j >= 0) {
+      const volatile uint64_t* sj = status + j;
+      while ((w = *sj) == 0) {
       }
-      ends[i] = end ? 1 : 0;
     }
-    run += round_total;
+    const unsigned inclusive =
+        __ballot_sync(kFullWarp, (w & ~kCountMask) == kInclusive);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    int64_t c = lane <= stop ? static_cast<int64_t>(w & kCountMask) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(kFullWarp, c, d);
+    before += c;
+    if (inclusive) return before;
   }
 }
 
-// out_cnt[j] = S[end_j] - S[end_{j-1}] for the n_runs = stats[0] compacted
-// run ends; stats[1] = n_runs without the trailing invalid run.
-__global__ void run_totals_kernel(const int64_t* __restrict__ ends_s,
-                                  int64_t* __restrict__ out_cnt,
-                                  const int32_t* __restrict__ out_msb,
-                                  uint32_t inv_min, int64_t* stats) {
-  const int64_t n_runs = stats[0];
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j == 0) {
-    const bool invalid_last =
-        n_runs > 0 && static_cast<uint32_t>(out_msb[n_runs - 1]) >= inv_min;
-    stats[1] = n_runs - (invalid_last ? 1 : 0);
-  }
-  if (j < n_runs) out_cnt[j] = ends_s[j] - (j > 0 ? ends_s[j - 1] : 0);
+template <int NK>
+__device__ __forceinline__ bool keys_differ(const uint32_t (&x)[NK],
+                                            const uint32_t (&y)[NK]) {
+  bool d = false;
+#pragma unroll
+  for (int c = 0; c < NK; ++c) d |= x[c] != y[c];
+  return d;
 }
 
-// Scratch regions, carved from one byte buffer (base == nullptr: sizes only).
+// At most 64 registers a thread, so that 4 blocks fit on an SM (76 without
+// the bound: 3 blocks, and 9 % slower on an H100).
+template <int NK>
+__global__ void __launch_bounds__(kDedupeThreads, 4)
+    merge_dedupe_kernel(ColSet a, ColSet b, int64_t m, int64_t n,
+                        const int64_t* __restrict__ a_starts, ColSet out,
+                        uint32_t inv_min, int64_t* __restrict__ stats,
+                        unsigned* tile_counter, uint64_t* status,
+                        uint64_t* __restrict__ tile_sum,
+                        int64_t* __restrict__ fix_at) {
+  constexpr int I = dedupe_items(NK);
+  constexpr int T = kDedupeThreads * I;
+  // staged A slice then B slice; after the scan, the tile's output rows
+  __shared__ uint32_t keys[NK][T];
+  __shared__ uint64_t cnt[T];
+  __shared__ uint32_t edge[2][NK];  // keys just before / after the tile
+  __shared__ Rbk warp_sums[kDedupeThreads / 32];
+  __shared__ int64_t heads_before_sh;
+  __shared__ int64_t tile_sh;
+  __shared__ int head0_sh, last_end_sh, last_invalid_sh;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) tile_sh = atomicAdd(tile_counter, 1u);
+  __syncthreads();
+  const int64_t t = tile_sh;
+  const int64_t total = m + n;
+  const int64_t d0 = t * T;
+  const int len = static_cast<int>(min64(T, total - d0));
+  const int64_t a0 = a_starts[t];
+  const int64_t a1 = a_starts[t + 1];
+  const int64_t b0 = d0 - a0;
+  const int64_t b1 = d0 + len - a1;
+  const int la = static_cast<int>(a1 - a0);
+  const int lb = len - la;
+  const bool has_prev = d0 > 0;
+  const bool has_next = d0 + len < total;
+
+  const uint32_t* ak[NK];
+  const uint32_t* bk[NK];
+#pragma unroll
+  for (int c = 0; c < NK; ++c) {
+    ak[c] = reinterpret_cast<const uint32_t*>(a.p[c]);
+    bk[c] = reinterpret_cast<const uint32_t*>(b.p[c]);
+  }
+  const uint64_t* ac = reinterpret_cast<const uint64_t*>(a.p[NK]);
+  const uint64_t* bc = reinterpret_cast<const uint64_t*>(b.p[NK]);
+  {
+    // every load of the thread's staged rows is in flight before the
+    // first store to shared memory waits on one
+    uint32_t sk[I][NK];
+    uint64_t sc[I];
+#pragma unroll
+    for (int r = 0; r < I; ++r) {
+      const int i = tid + r * kDedupeThreads;
+      if (i < len) {
+        const bool in_a = i < la;
+        const int64_t row = in_a ? a0 + i : b0 + (i - la);
+#pragma unroll
+        for (int c = 0; c < NK; ++c) sk[r][c] = (in_a ? ak[c] : bk[c])[row];
+        sc[r] = (in_a ? ac : bc)[row];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < I; ++r) {
+      const int i = tid + r * kDedupeThreads;
+      if (i < len) {
+#pragma unroll
+        for (int c = 0; c < NK; ++c) keys[c][i] = sk[r][c];
+        cnt[i] = sc[r];
+      }
+    }
+  }
+  // the merged row before the tile is the larger of A[a0-1] and B[b0-1];
+  // the one after it the smaller of A[a1] and B[b1] (ties: keys are equal)
+  if (tid == 0 && has_prev) {
+    uint32_t ka[NK], kb[NK];
+    if (a0 > 0) load_key<NK>(a, a0 - 1, ka);
+    if (b0 > 0) load_key<NK>(b, b0 - 1, kb);
+    const bool take_b = a0 == 0 || (b0 > 0 && key_le<NK>(ka, kb));
+#pragma unroll
+    for (int c = 0; c < NK; ++c) edge[0][c] = take_b ? kb[c] : ka[c];
+  }
+  if (tid == 32 && has_next) {
+    uint32_t ka[NK], kb[NK];
+    if (a1 < m) load_key<NK>(a, a1, ka);
+    if (b1 < n) load_key<NK>(b, b1, kb);
+    const bool take_a = b1 >= n || (a1 < m && key_le<NK>(ka, kb));
+#pragma unroll
+    for (int c = 0; c < NK; ++c) edge[1][c] = take_a ? ka[c] : kb[c];
+  }
+  __syncthreads();
+
+  // merge this thread's rows [d, d + nv) of the tile straight into
+  // registers, with their run-head flags, holding the walk's two front
+  // keys (staged A[i] and B[j]) in registers.  The merged row before the
+  // rows is the later of A[i-1] and B[j-1] at the thread's split; the one
+  // after them the earlier of the two front keys where the walk stops (on
+  // equal keys either will do).
+  const int d = min(tid * I, len);
+  const int nv = min(I, len - d);
+  int i, j;
+  {
+    int lo = max(0, d - lb);
+    int hi = min(d, la);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (staged_le<NK>(keys, mid, la + d - 1 - mid)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    i = lo;
+    j = d - lo;
+  }
+  uint32_t prev[NK];
+  bool prev_ok = true;
+  if (d > 0) {
+    const int s = i == 0 || (j > 0 && staged_le<NK>(keys, i - 1, la + j - 1))
+                      ? la + j - 1
+                      : i - 1;
+#pragma unroll
+    for (int c = 0; c < NK; ++c) prev[c] = keys[c][s];
+  } else if (has_prev) {
+#pragma unroll
+    for (int c = 0; c < NK; ++c) prev[c] = edge[0][c];
+  } else {
+    prev_ok = false;  // the first merged row starts the first run
+  }
+  uint32_t ka[NK], kb[NK];
+#pragma unroll
+  for (int c = 0; c < NK; ++c) {
+    ka[c] = keys[c][i < la ? i : 0];
+    kb[c] = keys[c][j < lb ? la + j : 0];
+  }
+  uint32_t k[I][NK];
+  uint64_t v[I];
+  bool head[I];
+  Rbk mine{0, 0};
+#pragma unroll
+  for (int r = 0; r < I; ++r) {
+    if (r < nv) {
+      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb));
+      v[r] = cnt[take_a ? i : la + j];
+#pragma unroll
+      for (int c = 0; c < NK; ++c) k[r][c] = take_a ? ka[c] : kb[c];
+      i += take_a;
+      j += !take_a;
+      // refill the front key of the side just taken
+      const bool more = take_a ? i < la : j < lb;
+      const int s = !more ? 0 : take_a ? i : la + j;
+#pragma unroll
+      for (int c = 0; c < NK; ++c) {
+        const uint32_t x = keys[c][s];
+        ka[c] = take_a ? x : ka[c];
+        kb[c] = take_a ? kb[c] : x;
+      }
+      head[r] = r == 0 ? !prev_ok || keys_differ<NK>(k[0], prev)
+                       : keys_differ<NK>(k[r], k[r - 1]);
+      mine = rbk(mine, Rbk{head[r] ? 1 : 0, v[r]});
+    }
+  }
+  // whether this thread's last row ends its run
+  bool last_end = false;
+  if (nv > 0) {
+    uint32_t next[NK];
+    bool next_ok = true;
+    if (d + nv < len) {
+      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb));
+#pragma unroll
+      for (int c = 0; c < NK; ++c) next[c] = take_a ? ka[c] : kb[c];
+    } else if (has_next) {
+#pragma unroll
+      for (int c = 0; c < NK; ++c) next[c] = edge[1][c];
+    } else {
+      next_ok = false;  // the last merged row ends the last run
+    }
+    last_end = !next_ok || keys_differ<NK>(k[nv - 1], next);
+    if (d == 0) head0_sh = head[0] ? 1 : 0;
+    if (d + nv == len) {
+      last_end_sh = last_end ? 1 : 0;
+      last_invalid_sh = k[nv - 1][0] >= inv_min ? 1 : 0;
+    }
+  }
+
+  Rbk agg;
+  const Rbk before_me =
+      block_exclusive_rbk<kDedupeThreads>(mine, warp_sums, &agg);
+
+  if (tid == 0) publish(status, t, t == 0 ? kInclusive : kAggregate, agg.n);
+
+  // every run end goes to its slot among the tile's run ends, with the sum
+  // of its rows in this tile (the staged input rows are no longer read):
+  // slot = heads so far in the tile, less one unless the tile's first run
+  // began here.  This needs nothing from the look-back.
+  Rbk run = before_me;
+#pragma unroll
+  for (int r = 0; r < I; ++r) {
+    if (r < nv) {
+      run = rbk(run, Rbk{head[r] ? 1 : 0, v[r]});
+      const bool end = r + 1 < nv ? head[r + 1] : last_end;
+      if (end) {
+        const int slot = static_cast<int>(run.n) - head0_sh;
+#pragma unroll
+        for (int c = 0; c < NK; ++c) keys[c][slot] = k[r][c];
+        cnt[slot] = run.s;
+      }
+    }
+  }
+  if (tid < 32) {
+    const int64_t before = t == 0 ? 0 : look_back(status, t);
+    if (tid == 0) {
+      if (t > 0) publish(status, t, kInclusive, before + agg.n);
+      heads_before_sh = before;
+    }
+  } else if (tid == 32) {
+    tile_sum[t] = agg.s;  // for the fix-up of runs that span tiles
+  }
+  __syncthreads();
+
+  // the tile's run ends, written from output row o_lo on
+  const int64_t before = heads_before_sh;
+  const int64_t o_lo = before - 1 + head0_sh;
+  const int n_out = static_cast<int>(agg.n) - head0_sh + last_end_sh;
+  if (tid == 32) {
+    // the tile's first run began in an earlier tile and ends here
+    fix_at[t] = !head0_sh && n_out > 0 ? o_lo : -1;
+  }
+  uint64_t* oc = reinterpret_cast<uint64_t*>(out.p[NK]);
+  for (int q = tid; q < n_out; q += kDedupeThreads) {
+#pragma unroll
+    for (int c = 0; c < NK; ++c) {
+      reinterpret_cast<uint32_t*>(out.p[c])[o_lo + q] = keys[c][q];
+    }
+    oc[o_lo + q] = cnt[q];
+  }
+  if (tid == 0 && !has_next) {
+    const int64_t n_runs = before + agg.n;
+    stats[0] = n_runs;
+    stats[1] = n_runs - last_invalid_sh;
+  }
+}
+
+constexpr int kFixThreads = 1024;  // tiles per block of the fix-up
+
+// Tile j (< tiles) as a reduce-by-key value: whether it holds a head (its
+// inclusive count exceeds the one before it) and tile_sum[j] (the sum
+// after its last head, or its whole sum without one); past the last tile,
+// the identity.
+__device__ __forceinline__ Rbk tile_rbk(const uint64_t* status,
+                                        const uint64_t* tile_sum, int64_t j,
+                                        int64_t tiles) {
+  if (j >= tiles) return Rbk{0, 0};
+  const uint64_t before = j > 0 ? status[j - 1] & kCountMask : 0;
+  return Rbk{(status[j] & kCountMask) > before ? 1 : 0, tile_sum[j]};
+}
+
+// The fix-up, first launch: block b's aggregate over its kFixThreads
+// tiles, one tile a thread.
+__global__ void __launch_bounds__(kFixThreads)
+    fix_reduce_kernel(const uint64_t* __restrict__ status,
+                      const uint64_t* __restrict__ tile_sum, int64_t tiles,
+                      Rbk* __restrict__ block_agg) {
+  __shared__ Rbk warp_sums[kFixThreads / 32];
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kFixThreads +
+                    threadIdx.x;
+  Rbk total;
+  block_exclusive_rbk<kFixThreads>(tile_rbk(status, tile_sum, j, tiles),
+                                   warp_sums, &total);
+  if (threadIdx.x == 0) block_agg[blockIdx.x] = total;
+}
+
+// The fix-up, second launch.  The rows that a tile's first run has in
+// earlier tiles sum to the s of the exclusive reduce-by-key scan over the
+// tiles: block b folds the aggregates of blocks 0..b-1, then scans its own
+// tiles, and each tile whose first run began earlier and ends in it
+// (fix_at >= 0) adds its carry to that run's output row.  (Walking back
+// from each such tile instead takes as many steps as the run spans tiles:
+// 8,700 for the invalid run at the end of a 2^26-row store that holds 2^24
+// keys.)
+__global__ void __launch_bounds__(kFixThreads)
+    fix_apply_kernel(const int64_t* __restrict__ fix_at,
+                     const uint64_t* __restrict__ status,
+                     const uint64_t* __restrict__ tile_sum, int64_t tiles,
+                     const Rbk* __restrict__ block_agg,
+                     uint64_t* __restrict__ out_cnt) {
+  __shared__ Rbk warp_sums[kFixThreads / 32];
+  Rbk carry{0, 0};
+  Rbk total;
+  for (int64_t base = 0; base < blockIdx.x; base += kFixThreads) {
+    const int64_t k = base + threadIdx.x;
+    block_exclusive_rbk<kFixThreads>(k < blockIdx.x ? block_agg[k] : Rbk{0, 0},
+                                     warp_sums, &total);
+    carry = rbk(carry, total);
+    __syncthreads();  // warp_sums is read again by the next call
+  }
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kFixThreads +
+                    threadIdx.x;
+  const Rbk before = block_exclusive_rbk<kFixThreads>(
+      tile_rbk(status, tile_sum, j, tiles), warp_sums, &total);
+  if (j < tiles && fix_at[j] >= 0) {
+    out_cnt[fix_at[j]] += rbk(carry, before).s;
+  }
+}
+
+// Scratch regions, carved from one byte buffer (base == nullptr: sizes
+// only).  The counter and the status words come first: one memset zeroes
+// both.
 struct Scratch {
+  unsigned* tile_counter;
+  uint64_t* status;
+  uint64_t* tile_sum;
+  int64_t* fix_at;
+  Rbk* block_agg;
   int64_t* a_starts;
-  int32_t* keys[kMaxKeys];
-  int64_t* cnt;
-  int32_t* ends;
-  int64_t* tile_vals;
-  int64_t* ends_s;
+  size_t zeroed_bytes;
   size_t bytes;
 };
 
-Scratch carve(char* base, int n_keys, int64_t m, int64_t n) {
-  const int64_t total = m + n;
+Scratch carve(char* base, int64_t tiles) {
   Scratch s{};
   size_t off = 0;
   auto take = [&](size_t bytes) -> char* {
@@ -119,16 +493,45 @@ Scratch carve(char* base, int n_keys, int64_t m, int64_t n) {
     off = align256(off + bytes);
     return p;
   };
-  s.a_starts = reinterpret_cast<int64_t*>(take(merge_scratch_elems(m, n) * 8));
-  for (int c = 0; c < n_keys; ++c) {
-    s.keys[c] = reinterpret_cast<int32_t*>(take(total * 4));
-  }
-  s.cnt = reinterpret_cast<int64_t*>(take(total * 8));
-  s.ends = reinterpret_cast<int32_t*>(take(total * 4));
-  s.tile_vals = reinterpret_cast<int64_t*>(take(compact_scratch_elems(total) * 8));
-  s.ends_s = reinterpret_cast<int64_t*>(take(total * 8));
+  s.tile_counter = reinterpret_cast<unsigned*>(take(sizeof(unsigned)));
+  s.status = reinterpret_cast<uint64_t*>(take(tiles * sizeof(uint64_t)));
+  s.zeroed_bytes = off;
+  s.tile_sum = reinterpret_cast<uint64_t*>(take(tiles * sizeof(uint64_t)));
+  s.fix_at = reinterpret_cast<int64_t*>(take(tiles * sizeof(int64_t)));
+  s.block_agg = reinterpret_cast<Rbk*>(
+      take(ceil_div(tiles, kFixThreads) * sizeof(Rbk)));
+  s.a_starts = reinterpret_cast<int64_t*>(take((tiles + 1) * sizeof(int64_t)));
   s.bytes = off;
   return s;
+}
+
+int64_t dedupe_tiles(int n_keys, int64_t total) {
+  return ceil_div(total, kDedupeThreads * dedupe_items(n_keys));
+}
+
+template <int NK>
+void launch_merge_dedupe_nk(const ColSet& a, const ColSet& b,
+                            const ColSet& out, int64_t m, int64_t n,
+                            uint32_t inv_min, int64_t* stats, char* scratch,
+                            cudaStream_t stream) {
+  constexpr int T = kDedupeThreads * dedupe_items(NK);
+  const int64_t tiles = dedupe_tiles(NK, m + n);
+  const Scratch s = carve(scratch, tiles);
+  cudaMemsetAsync(scratch, 0, s.zeroed_bytes, stream);
+  merge_partition_kernel<NK>
+      <<<static_cast<unsigned>(ceil_div(tiles + 1, 256)), 256, 0, stream>>>(
+          a, b, m, n, tiles + 1, T, s.a_starts);
+  merge_dedupe_kernel<NK><<<static_cast<unsigned>(tiles), kDedupeThreads, 0,
+                            stream>>>(a, b, m, n, s.a_starts, out, inv_min,
+                                      stats, s.tile_counter, s.status,
+                                      s.tile_sum, s.fix_at);
+  const unsigned fix_blocks =
+      static_cast<unsigned>(ceil_div(tiles, kFixThreads));
+  fix_reduce_kernel<<<fix_blocks, kFixThreads, 0, stream>>>(
+      s.status, s.tile_sum, tiles, s.block_agg);
+  fix_apply_kernel<<<fix_blocks, kFixThreads, 0, stream>>>(
+      s.fix_at, s.status, s.tile_sum, tiles, s.block_agg,
+      reinterpret_cast<uint64_t*>(out.p[NK]));
 }
 
 }  // namespace
@@ -136,7 +539,9 @@ Scratch carve(char* base, int n_keys, int64_t m, int64_t n) {
 
 extern "C" int64_t tsx_merge_dedupe_scratch_bytes(int n_keys, int64_t m,
                                                   int64_t n) {
-  return static_cast<int64_t>(tsx::carve(nullptr, n_keys, m, n).bytes);
+  using namespace tsx;
+  return static_cast<int64_t>(
+      carve(nullptr, dedupe_tiles(n_keys, m + n)).bytes);
 }
 
 extern "C" int tsx_merge_dedupe_sorted(void* const* a, void* const* b,
@@ -150,37 +555,26 @@ extern "C" int tsx_merge_dedupe_sorted(void* const* a, void* const* b,
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int64_t* stat = static_cast<int64_t*>(stats);
-  const int64_t total = m + n;
-  if (total == 0) {
+  if (m + n == 0) {
     cudaMemsetAsync(stat, 0, 2 * sizeof(int64_t), st);
     return cudaGetLastError();
   }
-  const int n_cols = n_keys + 1;
   int widths[kMaxCols];
   for (int c = 0; c < n_keys; ++c) widths[c] = 4;
   widths[n_keys] = 8;
-  const Scratch s = carve(static_cast<char*>(scratch), n_keys, m, n);
-  void* merged[kMaxCols];
-  for (int c = 0; c < n_keys; ++c) merged[c] = s.keys[c];
-  merged[n_keys] = s.cnt;
-  void* compacted[kMaxCols];
-  for (int c = 0; c < n_keys; ++c) compacted[c] = out[c];
-  compacted[n_keys] = s.ends_s;
-
-  const ColSet merged_cols = make_colset(merged, widths, n_cols);
-  launch_merge(n_keys, make_colset(a, widths, n_cols),
-               make_colset(b, widths, n_cols), merged_cols, m, n, s.a_starts,
-               st);
-  const unsigned tiles = static_cast<unsigned>(ceil_div(total, kTile));
-  sum_counts_kernel<<<tiles, kThreads, 0, st>>>(s.cnt, total, s.tile_vals);
-  scan_tiles_kernel<<<1, kScanBlock, 0, st>>>(s.tile_vals, tiles, nullptr);
-  prefix_and_ends_kernel<<<tiles, kThreads, 0, st>>>(
-      make_colset(merged, widths, n_keys), s.cnt, total, s.tile_vals, s.ends);
-  launch_compact(s.ends, merged_cols, make_colset(compacted, widths, n_cols),
-                 total, s.tile_vals, stat, st);
-  run_totals_kernel<<<static_cast<unsigned>(ceil_div(total, 256)), 256, 0,
-                      st>>>(s.ends_s, static_cast<int64_t*>(out[n_keys]),
-                            static_cast<const int32_t*>(out[0]), inv_min,
-                            stat);
+  const ColSet ca = make_colset(a, widths, n_keys + 1);
+  const ColSet cb = make_colset(b, widths, n_keys + 1);
+  const ColSet co = make_colset(out, widths, n_keys + 1);
+  char* sc = static_cast<char*>(scratch);
+  switch (n_keys) {
+    case 1: launch_merge_dedupe_nk<1>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 2: launch_merge_dedupe_nk<2>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 3: launch_merge_dedupe_nk<3>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 4: launch_merge_dedupe_nk<4>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 5: launch_merge_dedupe_nk<5>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 6: launch_merge_dedupe_nk<6>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    case 7: launch_merge_dedupe_nk<7>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+    default: launch_merge_dedupe_nk<8>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
+  }
   return cudaGetLastError();
 }

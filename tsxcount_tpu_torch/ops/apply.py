@@ -1,14 +1,15 @@
 """The table's slot update and slot probe (kernels 4 and 5, csrc/apply.cu).
 
 Replace the TPU kernels `apply_sorted_unique` and `gather_sorted`
-(tsxcount_tpu/ops/pallas_apply.py).  Both address one column region of the
-table's flat slot array (S uint32 words, carried as int32 bit patterns)
-through "doubled" destinations: element e of `dst2` (int32) is live iff it
-is odd, and then names word `dst2[e] >> 1`.  Dead elements (even values,
-and the `1 << 30` tail of inactive rows) are ignored.  The callers sort by
-slot, so `dst2` is non-decreasing.  apply_sorted_unique relies on its live
-words being distinct; gather_sorted needs neither order nor distinct words
-(the table's probe reads one word for every row of a run).
+(tsxcount_tpu/ops/pallas_apply.py).  Both address column regions of the
+table's flat slot array (S uint32 words each, carried as int32 bit
+patterns) through "doubled" destinations: element e of `dst2` (int32) is
+live iff it is odd, and then names word `dst2[e] >> 1`.  Dead elements
+(even values, and the `1 << 30` tail of inactive rows) are ignored.  The
+callers sort by slot, so `dst2` is non-decreasing.  apply_sorted_unique
+relies on its live words being distinct, and updates every column of a
+table round in one launch; gather_sorted needs neither order nor distinct
+words (the table's probe reads one word for every row of a run).
 
 Each function returns, beside its result, the TPU kernel's window-overflow
 count: a device int32 zero here (no window exists to overflow), which the
@@ -22,20 +23,14 @@ import torch
 from tsxcount_tpu_torch import _build
 from tsxcount_tpu_torch.ops.lanes import i32, u32
 
+MAX_APPLY_COLS = 16  # kMaxCols of csrc/common.cuh; k=127 needs 12
+
 
 def _live(col: torch.Tensor, dst2: torch.Tensor):
     """(live mask, word address int64) of each element of dst2."""
     d = u32(dst2)
     addr = d >> 1
     return ((d & 1) == 1) & (addr < col.shape[0]), addr
-
-
-def _check(name: str, col, dst2, val=None) -> torch.device:
-    dev = _build.check_columns(name, [col], (torch.int32,))
-    _build.check_columns(name, [dst2], (torch.int32,), device=dev)
-    if val is not None:
-        _build.check_columns(name, [val], (torch.int32,), dst2.shape[0], dev)
-    return dev
 
 
 def gather_sorted_plain(col: torch.Tensor, dst2: torch.Tensor
@@ -55,7 +50,8 @@ def gather_sorted(col: torch.Tensor, dst2: torch.Tensor
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (no synchronisation); any other device raises.
     """
-    dev = _check("gather_sorted", col, dst2)
+    dev = _build.check_columns("gather_sorted", [col], (torch.int32,))
+    _build.check_columns("gather_sorted", [dst2], (torch.int32,), device=dev)
     if dev.type == "cpu":
         return gather_sorted_plain(col, dst2)
     _build.require_cuda("gather_sorted", dev)
@@ -69,38 +65,57 @@ def gather_sorted(col: torch.Tensor, dst2: torch.Tensor
     return out, over
 
 
-def apply_sorted_unique_plain(col: torch.Tensor, dst2: torch.Tensor,
-                              val: torch.Tensor
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
+def _apply_args(cols, vals):
+    """(cols tuple, vals tuple): one column may come as a bare tensor."""
+    if isinstance(cols, torch.Tensor):
+        return (cols,), (vals,)
+    return tuple(cols), tuple(vals)
+
+
+def apply_sorted_unique_plain(cols, dst2: torch.Tensor, vals):
     """Plain PyTorch version of apply_sorted_unique (also in place)."""
-    live, addr = _live(col, dst2)
+    cols_t, vals_t = _apply_args(cols, vals)
+    live, addr = _live(cols_t[0], dst2)
     a = addr[live]
-    col[a] = i32(u32(col[a]) + u32(val[live]))
-    return col, torch.zeros((), dtype=torch.int32, device=col.device)
+    for col, val in zip(cols_t, vals_t):
+        col[a] = i32(u32(col[a]) + u32(val[live]))
+    return cols, torch.zeros((), dtype=torch.int32, device=dst2.device)
 
 
-def apply_sorted_unique(col: torch.Tensor, dst2: torch.Tensor,
-                        val: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """col[dst2[e] >> 1] += val[e] for odd dst2[e], modulo 2^32, IN PLACE.
+def apply_sorted_unique(cols, dst2: torch.Tensor, vals
+                        ) -> tuple[object, torch.Tensor]:
+    """cols[c][dst2[e] >> 1] += vals[c][e] for odd dst2[e] and every c,
+    modulo 2^32, IN PLACE.
 
-    col: int32 [S] (uint32 bit patterns); dst2, val: int32 [W]; live
-    destinations distinct.  Returns (col itself, overflow int32 0-d zero).
-    The update is in place because the column is a region of the table's
+    cols: C <= 16 int32 column regions [S] of one slot array (uint32 bit
+    patterns), or one such tensor; vals: as many int32 [W] value columns
+    (or one tensor); dst2: int32 [W], shared by every column, live
+    destinations distinct.  Returns (cols itself, overflow int32 0-d zero).
+    One call is C calls of the TPU kernel, one per column, in one launch.
+    The update is in place because the columns are regions of the table's
     whole slot array: the JAX package donates that array to the round, and
-    an out-of-place update here would copy the 2^26-word column twice per
+    an out-of-place update here would copy a 2^26-word column twice per
     column per round.  CPU tensors take the plain version; CUDA tensors
     launch the kernel on the current stream; any other device raises.
     """
-    dev = _check("apply_sorted_unique", col, dst2, val)
+    name = "apply_sorted_unique"
+    cols_t, vals_t = _apply_args(cols, vals)
+    if not 1 <= len(cols_t) <= MAX_APPLY_COLS or len(vals_t) != len(cols_t):
+        raise ValueError(f"{name}: 1..{MAX_APPLY_COLS} columns, one value "
+                         f"column each")
+    dev = _build.check_columns(name, list(cols_t), (torch.int32,),
+                               cols_t[0].shape[0])
+    _build.check_columns(name, [dst2], (torch.int32,), device=dev)
+    _build.check_columns(name, list(vals_t), (torch.int32,), dst2.shape[0],
+                         dev)
     if dev.type == "cpu":
-        return apply_sorted_unique_plain(col, dst2, val)
-    _build.require_cuda("apply_sorted_unique", dev)
+        return apply_sorted_unique_plain(cols, dst2, vals)
+    _build.require_cuda(name, dev)
     over = torch.zeros((), dtype=torch.int32, device=dev)
     lib = _build.kernels()
-    rc = lib.tsx_apply_sorted_unique(col.data_ptr(), col.shape[0],
-                                     dst2.data_ptr(), val.data_ptr(),
-                                     dst2.shape[0], _build.stream())
-    _build.check(rc, "apply_sorted_unique")
-    _build.count_launch("apply_sorted_unique")
-    return col, over
+    rc = lib.tsx_apply_sorted_unique(
+        _build.ptr_array(cols_t), _build.ptr_array(vals_t), len(cols_t),
+        cols_t[0].shape[0], dst2.data_ptr(), dst2.shape[0], _build.stream())
+    _build.check(rc, name)
+    _build.count_launch(name)
+    return cols, over
