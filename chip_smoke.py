@@ -12,11 +12,16 @@ non-zero and no result line is printed):
      seeded inputs at the main paths' shapes plus hard cases — exact
      equality (all outputs are integers) — with the kernel's, the plain
      version's and a yardstick PyTorch call's times, and the kernel's
-     bytes bound at the card's 3.35 TB/s; kernel 3's main and one-key
-     cases called 10 more times, bit-identical every time (its tiles
-     finish in a different order on every call), with its scratch bytes;
+     bytes bound at the card's 3.35 TB/s; kernel 1 with int32 and bool
+     flags (bool, as the callers pass them, in the kernels line; int32 in
+     its kernel_time line), its main case called 10 more times, and
+     kernel 3's main and one-key cases too, bit-identical every time
+     (their tiles finish in a different order on every call), with kernel
+     3's scratch bytes;
      kernel 4 timed as the table calls it, one launch over a round's four
-     value columns, with the 32-byte sectors each column touches;
+     value columns, and kernel 5 as one launch over the two k=14 probe
+     columns and as one column, both with the 32-byte sectors they touch
+     (the sector floor beside the bound);
   4. end to end, sort backend: the seed-42 bench FASTQ (bench.py, 20,000
      reads) counted at k=14 with the CLI's defaults; totals, the full
      sorted export against an independent numpy count, point queries, the
@@ -24,11 +29,13 @@ non-zero and no result line is printed):
      must give the identical export;
   5. end to end, table backend: the same file at k=14, l=26 (totals,
      spill, fill factor, export and queries against the numpy count,
-     launch counts, one kernel-4 launch per split round, the round
-     widths, cold and warm times); at k=31, l=25 against a numpy count at
-     k=31; and a small file counted on the card and on the CPU, whose
-     table states must be identical word for word;
-then the kernels' JSON line, the nvidia-smi line, and as the last line
+     launch counts, one kernel-4 and one kernel-5 launch per split
+     round, the round widths, cold and warm times); at k=31, l=25 against
+     a numpy count at k=31; and a small file counted on the card and on
+     the CPU, whose table states must be identical word for word;
+then the kernels' JSON line (the contract's keys; extra times, floors and
+bounds only in the kernel_time lines), the nvidia-smi line, and as the
+last line
 {"ok": true, "device": {...}}.  Builds and data go to
 tsxcount_tpu_torch/build/ (gitignored).  No JAX is imported.
 """
@@ -73,12 +80,14 @@ from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
 
 K = 14
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device-memory rate (data sheet)
+SLEEP_CYCLES = 100_000_000   # ~50 ms of device sleep ahead of timed calls
 SORT_KERNELS = ("compact_flagged", "merge_sorted", "merge_dedupe_sorted")
 TABLE_KERNELS = ("gather_sorted", "apply_sorted_unique", "compact_flagged")
 TOTAL_KMERS = 18_750_197     # seed-42 bench FASTQ, k=14 windows
 DISTINCT_KMERS = 14_479_762  # and distinct k-mers
 INV14 = 1 << 28              # k=14 invalid constant (flag above 28 key bits)
 DEDUPE_REPEATS = 10          # kernel 3 race check: calls per repeated case
+COMPACT_REPEATS = 10         # kernel 1 race check: calls of the main case
 DEDUPE_REPEATED = ("main", "one_key_sum_over_2^32")
 KERNELS = {
     "compact_flagged": ("tsxcount_tpu_torch/csrc/compact.cu",
@@ -110,11 +119,14 @@ def gpu(a: np.ndarray) -> torch.Tensor:
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median device time of fn() over reps calls, each between its own
     pair of CUDA events, after one warm-up (the median keeps one slow call
-    out of the figure)."""
+    out of the figure).  The calls queue up behind a device sleep, so the
+    wrappers' Python time never leaves the card idle inside an event pair
+    (device time, not the host's launch time)."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
     for t0, t1 in events:
         t0.record()
         fn()
@@ -190,30 +202,67 @@ def build() -> None:
 # --- phase 3 ----------------------------------------------------------------
 
 def check_compact(results: dict) -> None:
+    """Kernel 1 with int32 flags (the earlier rows' case) and bool flags
+    (as both callers now pass them), then offset (unaligned) views; the
+    main case timed with bool flags (the contract's keys), with int32 flags
+    beside it (an extra), and called COMPACT_REPEATS more times."""
     n = 1 << 24
     worst = 0
     for case, density in (("random", 0.5), ("all0", 0.0), ("all1", 1.0)):
-        flag = gpu((rng.random(n) < density).astype(np.int32))
+        mask = gpu(rng.random(n) < density)
         cols = (gpu(rng.integers(0, 1 << 29, n, dtype=np.uint32)),
                 torch.arange(n, dtype=torch.int32, device=DEV),
                 gpu(rng.integers(-2**62, 2**62, n)))
-        got = compact_flagged(flag, cols)
-        want = compact_flagged_plain(flag, cols)
-        rows = int((flag != 0).sum())
-        err = max_err(got, want, rows)
-        phase("kernel", name="compact_flagged", case=case, rows=n,
-              flagged=rows, max_abs_err=err)
-        worst = max(worst, err)
+        rows = int(mask.sum())
+        for flag in (mask.to(torch.int32), mask):
+            err = max_err(compact_flagged(flag, cols),
+                          compact_flagged_plain(flag, cols), rows)
+            phase("kernel", name="compact_flagged", case=case, rows=n,
+                  flags=str(flag.dtype), flagged=rows, max_abs_err=err)
+            worst = max(worst, err)
         if case == "random":  # the main path's columns: operand + position
-            ms = cuda_ms(lambda: compact_flagged(flag, cols[:2]))
-            plain_ms = cuda_ms(lambda: compact_flagged_plain(flag, cols[:2]))
-            mask, stacked = flag != 0, torch.stack(cols[:2])
-            library_ms = cuda_ms(lambda: stacked[:, mask])
-            # flags and both columns read, the flagged rows written
-            bound = bytes_ms(n * 4 + 2 * n * 4 + rows * 2 * 4)
-    results["compact_flagged"] = dict(max_abs_err=worst, ms=ms,
-                                      plain_ms=plain_ms,
-                                      library_ms=library_ms, bound_ms=bound)
+            main, flag32 = cols[:2], mask.to(torch.int32)
+            check_compact_repeats(mask, main, rows)
+            stacked = torch.stack(main)
+            # flags (1 B bool, 4 B int32) and both columns read, the
+            # flagged rows written
+            timing = dict(
+                ms=cuda_ms(lambda: compact_flagged(mask, main)),
+                plain_ms=cuda_ms(lambda: compact_flagged_plain(mask, main)),
+                library_ms=cuda_ms(lambda: stacked[:, mask]),
+                bound_ms=bytes_ms(n + 2 * n * 4 + rows * 2 * 4),
+                extra=dict(
+                    ms_int32_flags=cuda_ms(
+                        lambda: compact_flagged(flag32, main)),
+                    bound_ms_int32_flags=bytes_ms(
+                        n * 4 + 2 * n * 4 + rows * 2 * 4)))
+    # bool flags and columns one row into their storage: the scalar paths
+    base = (gpu(rng.random(n + 1) < 0.5),
+            gpu(rng.integers(0, 2**32, n + 1, dtype=np.uint32)),
+            gpu(rng.integers(-2**62, 2**62, n + 1)))
+    flag, cols = base[0][1:], tuple(c[1:] for c in base[1:])
+    rows = int(flag.sum())
+    err = max_err(compact_flagged(flag, cols),
+                  compact_flagged_plain(flag, cols), rows)
+    phase("kernel", name="compact_flagged", case="offset_views", rows=n,
+          flags=str(flag.dtype), flagged=rows, max_abs_err=err)
+    worst = max(worst, err)
+    results["compact_flagged"] = dict(max_abs_err=worst, **timing)
+
+
+def check_compact_repeats(flag, cols, rows: int) -> None:
+    """Kernel 1's tiles finish in another order on every call (atomic tile
+    counter, look-back): COMPACT_REPEATS more calls must give outputs
+    bit-identical to the first call's."""
+    first = compact_flagged(flag, cols)
+    for i in range(COMPACT_REPEATS):
+        got = compact_flagged(flag, cols)
+        if not all(torch.equal(g[:rows], f[:rows])
+                   for g, f in zip(got, first)):
+            raise AssertionError(f"compact_flagged: call {i + 2} differs "
+                                 f"from the first")
+    phase("kernel_repeats", name="compact_flagged", case="random",
+          flags=str(flag.dtype), calls=COMPACT_REPEATS, bit_identical=True)
 
 
 def check_merge(results: dict) -> None:
@@ -442,11 +491,16 @@ def apply_cases() -> dict:
 
 def check_apply_kernels(results: dict) -> None:
     col = gpu(rng.integers(0, 2**32, S_COL, dtype=np.uint32))
+    # kernel 5's column set: two adjacent regions of one flat array
+    flat2 = gpu(rng.integers(0, 2**32, 2 * S_COL, dtype=np.uint32))
+    pair = [flat2[:S_COL], flat2[S_COL:]]
     worst_g = worst_a = 0
     for case, (dstg, dsta) in apply_cases().items():
         g = gather_sorted(col, dstg)
         w = gather_sorted_plain(col, dstg)
-        err_g = max_err(g, w)
+        err_g = max(max_err(g, w),
+                    max_err(gather_sorted(pair, dstg)[0],
+                            gather_sorted_plain(pair, dstg)[0]))
         val = gpu(rng.integers(0, 2**32, dsta.numel(), dtype=np.uint32))
         got = apply_sorted_unique(col.clone(), dsta, val)
         want = apply_sorted_unique_plain(col.clone(), dsta, val)
@@ -469,20 +523,35 @@ def check_apply_kernels(results: dict) -> None:
     # a table round at the main shape, all columns in one launch
     worst_a = max(worst_a, check_apply_round(results, dsta))
 
-    # gather times at the main round's shape
+    # gather times at the main round's shape: one call over the two probe
+    # columns of k=14 (key word, used flag), and a one-column call
     live_g = live_addr(dstg)
     words_g = torch.unique_consecutive(live_g).numel()
+    sectors_g = torch.unique_consecutive(live_g >> 3).numel()
+    segments_g = torch.unique_consecutive(live_g >> 4).numel()
     idx_g = torch.where((dstg & 1) == 1, dstg >> 1, 0).to(torch.int64)
+    slots2d = flat2.view(2, S_COL)
+    w = dstg.numel()
     results["gather_sorted"] = dict(
         max_abs_err=worst_g,
-        ms=cuda_ms(lambda: gather_sorted(col, dstg)),
-        plain_ms=cuda_ms(lambda: gather_sorted_plain(col, dstg)),
-        library_ms=cuda_ms(lambda: torch.index_select(col, 0, idx_g)),
-        # dst2 read, out written, each distinct live slot word read once
-        bound_ms=bytes_ms(dstg.numel() * 8 + words_g * 4))
+        ms=cuda_ms(lambda: gather_sorted(pair, dstg)),
+        plain_ms=cuda_ms(lambda: gather_sorted_plain(pair, dstg)),
+        library_ms=cuda_ms(lambda: torch.index_select(slots2d, 1, idx_g)),
+        # dst2 read, two outs written, each distinct live slot word of
+        # each column read once (4 B; 32 B per distinct sector for the
+        # floor that the data's scatter puts above it)
+        bound_ms=bytes_ms(w * 4 + 2 * w * 4 + 2 * words_g * 4),
+        extra=dict(
+            sector_floor_ms=bytes_ms(w * 4 + 2 * w * 4 + 2 * sectors_g * 32),
+            ms_one_column=cuda_ms(lambda: gather_sorted(col, dstg)),
+            library_ms_one_column=cuda_ms(
+                lambda: torch.index_select(col, 0, idx_g)),
+            bound_ms_one_column=bytes_ms(w * 8 + words_g * 4)))
     results["apply_sorted_unique"]["max_abs_err"] = worst_a
     phase("kernel_shape", name="gather_sorted", column_words=S_COL,
-          elements=W_ROUND, live_gather=live_g.numel(), words_gather=words_g)
+          elements=w, columns=2, live_gather=live_g.numel(),
+          words_gather=words_g, sectors_32B=sectors_g,
+          segments_64B=segments_g)
 
 
 def round_values(dsta: torch.Tensor) -> list:
@@ -528,7 +597,10 @@ def check_apply_round(results: dict, dsta: torch.Tensor) -> int:
         plain_ms=cuda_ms(lambda: apply_sorted_unique_plain(cols, dsta, vals)),
         library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, lib_vals)),
         bound_ms=bytes_ms(dsta.numel() * 4 + n_cols * addr.numel() * 4
-                          + sum(nonzero) * 8))
+                          + sum(nonzero) * 8),
+        extra=dict(sector_floor_ms=bytes_ms(dsta.numel() * 4
+                                            + n_cols * addr.numel() * 4
+                                            + 2 * 32 * sum(sectors))))
     phase("kernel_shape", name="apply_sorted_unique", column_words=S_COL,
           elements=dsta.numel(), columns=n_cols, live=addr.numel(),
           nonzero_updates=nonzero, sectors_32B=sectors,
@@ -703,13 +775,14 @@ def table_end_to_end(path: Path, want_keys, want_counts) -> dict:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} not launched on the "
                                  f"table path")
-    # kernel 4 updates every column of a split round in one launch
-    if launches["apply_sorted_unique"] != len(widths):
-        raise AssertionError(
-            f"apply_sorted_unique launched {launches['apply_sorted_unique']} "
-            f"times in {len(widths)} split rounds")
+    # kernels 4 and 5 take every column of a split round in one launch
+    for name in ("apply_sorted_unique", "gather_sorted"):
+        if launches[name] != len(widths):
+            raise AssertionError(f"{name} launched {launches[name]} times "
+                                 f"in {len(widths)} split rounds")
     phase("e2e_table", run="cold", split_rounds=len(widths),
-          apply_sorted_unique_launches=launches["apply_sorted_unique"])
+          apply_sorted_unique_launches=launches["apply_sorted_unique"],
+          gather_sorted_launches=launches["gather_sorted"])
     check_queries(counter, want_keys, want_counts)
     counter.reset()
     widths.clear()
@@ -766,10 +839,11 @@ def main() -> int:
     check_merge_dedupe(results)
     check_apply_kernels(results)
     for kname, r in results.items():
-        phase("kernel_time", name=kname, ms=round(r["ms"], 4),
-              plain_ms=round(r["plain_ms"], 4),
-              library_ms=r["library_ms"] and round(r["library_ms"], 4),
-              bound_ms=round(r["bound_ms"], 4))
+        times = {k: v for k, v in r.items() if k not in ("max_abs_err",
+                                                         "extra")}
+        phase("kernel_time", name=kname,
+              **{k: v if v is None else round(v, 4)
+                 for k, v in (times | r.get("extra", {})).items()})
         if r["max_abs_err"] != 0:
             raise AssertionError(f"{kname} differs from its plain version")
     path = bench_file()
@@ -780,6 +854,8 @@ def main() -> int:
           host_distinct=len(want_keys), host_total=int(want_counts.sum()))
     by_path = {"sort": end_to_end(path, want_keys, want_counts),
                "table": table_end_to_end(path, want_keys, want_counts)}
+    # the contract's keys and the launches by path; the extras stay in the
+    # kernel_time lines above
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": KERNELS[kname][0],
          "replaces": KERNELS[kname][1],

@@ -188,6 +188,28 @@ def test_gather_every_row_equals_heads_filled_forward():
     assert np.array_equal(got.numpy().view(np.uint32)[: len(pos)], filled)
 
 
+def test_gather_column_set_matches_jax_per_column():
+    """One call over three column regions of one flat slot array (the
+    table's probe columns) equals the JAX kernel called column by column,
+    and each of its outputs the one-column call's."""
+    rng = np.random.default_rng(23)
+    n_cols = 3
+    flat = rng.integers(0, 2**32, size=n_cols * S, dtype=np.uint32)
+    live = np.sort(rng.choice(S, 1300, replace=False)).astype(np.int64)
+    dead = rng.integers(0, S, size=400, dtype=np.int64)
+    dst2 = np.sort(np.concatenate([live * 2 + 1, dead * 2])).astype(np.int32)
+    regions = [flat[c * S : (c + 1) * S] for c in range(n_cols)]
+    cols = [_t(r) for r in regions]
+    outs, zero = gather_sorted(cols, _t(_pad(dst2)))
+    assert isinstance(outs, tuple) and len(outs) == n_cols
+    assert int(zero) == 0
+    for col, region, out in zip(cols, regions, outs):
+        assert np.array_equal(out.numpy().view(np.uint32)[: len(dst2)],
+                              _jax_gather(region, dst2))
+        one, _ = gather_sorted(col, _t(_pad(dst2)))
+        assert torch.equal(one, out)
+
+
 def test_apply_column_sets_checked():
     """One value column per slot column, 1..16 columns of one length."""
     col = torch.zeros(S, dtype=torch.int32)

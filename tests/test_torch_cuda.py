@@ -63,6 +63,40 @@ def test_compact_kernel(dev, total, density):
         assert torch.equal(g[:n], w[:n])
 
 
+@pytest.mark.parametrize("flag_dtype", [torch.bool, torch.int32])
+def test_compact_repeats_bit_identical(dev, flag_dtype):
+    """About 2,000 tiles of 4096 rows finish in a different order on every
+    call: five calls must give identical outputs, equal to the plain
+    version's."""
+    rng = np.random.default_rng(17)
+    total = 2000 * 4096 - 3
+    flag = _t(rng.random(total) < 0.5, dev).to(flag_dtype)
+    cols = (_t(rng.integers(0, 2**32, total, dtype=np.uint32), dev),
+            _t(rng.integers(-2**62, 2**62, total), dev))
+    want = compact_flagged_plain(flag, cols)
+    n = int((flag != 0).sum())
+    for _ in range(5):
+        for g, w in zip(compact_flagged(flag, cols), want):
+            assert torch.equal(g[:n], w[:n])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_compact_bool_flags_int64_columns_offset_views(dev, offset):
+    """Bool flags, int32 and int64 columns, and views that start `offset`
+    rows into their storage (unaligned for the vector loads)."""
+    rng = np.random.default_rng(offset)
+    total = 300_001
+    flag = _t(rng.random(total + offset) < 0.3, dev)[offset:]
+    cols = (_t(rng.integers(0, 2**32, total + offset, dtype=np.uint32),
+               dev)[offset:],
+            _t(rng.integers(-2**62, 2**62, total + offset), dev)[offset:])
+    n = int(flag.sum())
+    for fl in (flag, flag.to(torch.int32)):
+        for g, w in zip(compact_flagged(fl, cols),
+                        compact_flagged_plain(fl, cols)):
+            assert torch.equal(g[:n], w[:n])
+
+
 def _sorted_run(rng, n, n_keys, hi):
     keys = rng.integers(0, hi, size=(n, n_keys), dtype=np.uint64)
     keys = keys.astype(np.uint32)
@@ -206,16 +240,25 @@ def test_merge_dedupe_repeats_bit_identical(dev, m, n, n_keys, hi):
             assert torch.equal(g[:r], w[:r])
 
 
-def test_gather_every_row_of_long_runs(dev):
-    """The table's probe: every row of a run reads the same slot word."""
-    rng = np.random.default_rng(3)
+@pytest.mark.parametrize("n_cols", [1, 2, 5, 12])
+def test_gather_every_row_of_long_runs(dev, n_cols):
+    """The table's probe: every row of a run reads the same slot word, over
+    column sets of 1-12 regions of one flat array, with a dead tail, and
+    over an offset view of dst2; the one-column calls agree."""
+    rng = np.random.default_rng(3 + n_cols)
     s = 1 << 20
-    col = _t(rng.integers(0, 2**32, s, dtype=np.uint32), dev)
+    flat = _t(rng.integers(0, 2**32, n_cols * s, dtype=np.uint32), dev)
+    cols = [flat[c * s : (c + 1) * s] for c in range(n_cols)]
     pos = np.sort(rng.integers(0, 4096, 1 << 18))
     dst2 = _t(np.concatenate([2 * pos + 1, np.full(999, 1 << 30)])
               .astype(np.int32), dev)
-    for g, w in zip(gather_sorted(col, dst2), gather_sorted_plain(col, dst2)):
-        assert torch.equal(g, w)
+    for d in (dst2, dst2[1:]):  # whole, and one row into its storage
+        got, zero = gather_sorted(cols, d)
+        want, _ = gather_sorted_plain(cols, d)
+        assert int(zero) == 0 and len(got) == n_cols
+        for col, g, w in zip(cols, got, want):
+            assert torch.equal(g, w)
+            assert torch.equal(gather_sorted(col, d)[0], g)
 
 
 @pytest.mark.parametrize("k,l", [(14, 14), (31, 15)])

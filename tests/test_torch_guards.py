@@ -129,12 +129,18 @@ def test_wrappers_check_dtype_shape_contiguity():
         compact_flagged(i32, (torch.zeros(15, dtype=torch.int32),))
     with pytest.raises(ValueError):
         compact_flagged(i32, (torch.zeros(32, dtype=torch.int32)[::2],))
+    for flag_dtype in (torch.float32, torch.int64):  # int32 or bool flags
+        with pytest.raises(TypeError):
+            compact_flagged(i32.to(flag_dtype), (i32,))
     with pytest.raises(TypeError):  # key columns must be int32 words
         merge_sorted((i32.long(),), (i32.long(),))
     with pytest.raises(TypeError):  # the count column must be int64
         merge_dedupe_sorted((i32, i32), (i32, i32), 1, 1)
     with pytest.raises(TypeError):  # slot words are int32 bit patterns
         gather_sorted(i32.long(), i32)
+    for cols in ([], [i32] * 17, [i32, i32[:8]]):  # 1..16 of one length
+        with pytest.raises(ValueError):
+            gather_sorted(cols, i32)
     with pytest.raises(ValueError):  # one value per destination
         apply_sorted_unique(i32, i32, i32[:8])
     with pytest.raises(ValueError):

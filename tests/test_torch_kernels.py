@@ -57,6 +57,23 @@ def test_compact_matches_jax(density, seed):
     assert got[0].shape == (total,)
 
 
+def test_compact_bool_flags_match_jax_int32_flags():
+    """The port's callers pass bool flags; the JAX kernel takes the same
+    flags as int32."""
+    rng = np.random.default_rng(8)
+    total = 2 * TILE
+    flag = rng.random(total) < 0.4
+    a = rng.integers(0, 2**32, size=total, dtype=np.uint32)
+    b = rng.integers(-2**31, 2**31, size=total, dtype=np.int32)
+    want = jax_compact(jnp.asarray(flag.astype(np.int32)),
+                       (jnp.asarray(a), jnp.asarray(b)), tile=TILE,
+                       interpret=True)
+    got = compact_flagged(torch.from_numpy(flag), (to_torch(a), to_torch(b)))
+    n = int(flag.sum())
+    np.testing.assert_array_equal(as_u32(got[0])[:n], np.asarray(want[0])[:n])
+    np.testing.assert_array_equal(got[1].numpy()[:n], np.asarray(want[1])[:n])
+
+
 def test_compact_cross_tile_offsets():
     """Irregular flag counts per tile put every tile's output at a
     different offset (the TPU kernel's read-modify-write windows)."""

@@ -10,9 +10,11 @@
 //
 // Blocks run one after another, in blockIdx order.  So a block that takes
 // its tile from an atomic counter gets tile blockIdx.x, and a decoupled
-// look-back (kernel 3) finds every earlier tile's inclusive count already
-// published: it never spins here, and what runs is its single-window path.
-// Races between blocks are judged on the card only.
+// look-back (kernels 1 and 3) finds every earlier tile's inclusive count
+// already published: it never spins here, and what runs is its
+// single-window path.  Races between blocks are judged on the card only.
+// Vector accesses (the kernels' aligned Vec structs) are plain struct
+// copies here; the alignment checks that pick them run as on the card.
 #pragma once
 
 #include <algorithm>
@@ -128,6 +130,13 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+// A read-only (non-coherent cache) load on the card: a plain load here.
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
 
 template <class T>
 T atomicAdd(T* p, T v) {

@@ -98,20 +98,31 @@ def main() -> int:
     t = lambda a: torch.from_numpy(
         a.view(np.int32) if a.dtype == np.uint32 else a)
 
-    for total, density in [(1, 1.0), (5000, 0.5), (9000, 0.0), (9000, 1.0),
-                           (12345, 0.1)]:
-        flag = t((rng.random(total) < density).astype(np.int32))
-        cols = (t(rng.integers(0, 2**32, total, dtype=np.uint32)),
-                t(rng.integers(-2**62, 2**62, total)))
+    # kernel 1: 4096-row tiles; bool and int32 flags, an int32 and an int64
+    # column, lengths off the 4-row vector width, 18 tiles, and offset
+    # (unaligned) views of flags and columns (the scalar paths)
+    def compact(flag, cols):
         out = tuple(torch.full_like(c, -7) for c in cols)
-        scratch = torch.empty(lib.tsx_compact_scratch_elems(total),
-                              dtype=torch.int64)
+        total = flag.numel()
+        scratch = torch.empty(lib.tsx_compact_scratch_bytes(total),
+                              dtype=torch.uint8)
         assert lib.tsx_compact_flagged(
-            flag.data_ptr(), P(cols), P(out), W(cols), 2, total,
-            scratch.data_ptr(), None) == 0
+            flag.data_ptr(), flag.element_size(), P(cols), P(out), W(cols),
+            len(cols), total, scratch.data_ptr(), None) == 0
         n = int((flag != 0).sum())
         for g, w in zip(out, compact_flagged_plain(flag, cols)):
-            assert torch.equal(g[:n], w[:n]), ("compact", total, density)
+            assert torch.equal(g[:n], w[:n]), ("compact", total, flag.dtype)
+
+    for total, density, offset in [(1, 1.0, 0), (5000, 0.5, 0),
+                                   (9000, 0.0, 0), (9000, 1.0, 0),
+                                   (12345, 0.1, 0), (70001, 0.5, 0),
+                                   (70001, 0.7, 1), (4099, 0.5, 3)]:
+        flag = rng.random(total + offset) < density
+        cols = (t(rng.integers(0, 2**32, total + offset, dtype=np.uint32)),
+                t(rng.integers(-2**62, 2**62, total + offset)))
+        cols = tuple(c[offset:] for c in cols)
+        for dtype in (torch.bool, torch.int32):
+            compact(torch.from_numpy(flag).to(dtype)[offset:], cols)
     print("compact_flagged: ok")
 
     def run(n, n_keys, hi, extra):
@@ -185,13 +196,18 @@ def main() -> int:
         dst2 = t(np.concatenate([dst2, np.full(tail, 1 << 30)])
                  .astype(np.int32))
         n = dst2.numel()
-        col = t(rng.integers(0, 2**32, s, dtype=np.uint32))
         val = t(rng.integers(0, 2**32, n, dtype=np.uint32))
-        out = torch.full((n,), -7, dtype=torch.int32)
-        assert lib.tsx_gather_sorted(col.data_ptr(), s, dst2.data_ptr(), n,
-                                     out.data_ptr(), None) == 0
-        assert torch.equal(out, gather_sorted_plain(col, dst2)[0]), (
-            "gather", s, n_live)
+        # kernel 5 over column sets of 1, 2 and 5 regions of one flat
+        # array, and over an offset dst2 view
+        flat = t(rng.integers(0, 2**32, 5 * s, dtype=np.uint32))
+        for n_cols, d in [(1, dst2), (2, dst2), (5, dst2), (2, dst2[1:])]:
+            cols = [flat[c * s : (c + 1) * s] for c in range(n_cols)]
+            outs = [torch.full_like(d, -7) for _ in cols]
+            assert lib.tsx_gather_sorted(P(cols), P(outs), n_cols, s,
+                                         d.data_ptr(), d.numel(), None) == 0
+            want, _ = gather_sorted_plain(cols, d)
+            assert all(map(torch.equal, outs, want)), ("gather", s, n_live,
+                                                       n_cols)
         # kernel 4 with one column, and with five regions of one flat
         # array: random values, zeros, some zeros, wrapping adds, 0/1
         flat = t(rng.integers(2**31, 2**32, 5 * s, dtype=np.uint32))
@@ -212,12 +228,13 @@ def main() -> int:
             assert torch.equal(got, want), ("apply", s, n_live, n_cols)
     # the table's probe: every row of a run reads the same word
     s = 2048
-    col = t(rng.integers(0, 2**32, s, dtype=np.uint32))
-    dst2 = t((2 * np.sort(rng.integers(0, 300, 3000)) + 1).astype(np.int32))
-    out = torch.empty_like(dst2)
-    assert lib.tsx_gather_sorted(col.data_ptr(), s, dst2.data_ptr(),
-                                 dst2.numel(), out.data_ptr(), None) == 0
-    assert torch.equal(out, gather_sorted_plain(col, dst2)[0]), "runs"
+    cols = [t(rng.integers(0, 2**32, s, dtype=np.uint32)) for _ in range(2)]
+    dst2 = t((2 * np.sort(rng.integers(0, 300, 3001)) + 1).astype(np.int32))
+    outs = [torch.empty_like(dst2) for _ in cols]
+    assert lib.tsx_gather_sorted(P(cols), P(outs), 2, s, dst2.data_ptr(),
+                                 dst2.numel(), None) == 0
+    assert all(map(torch.equal, outs, gather_sorted_plain(cols, dst2)[0])), (
+        "runs")
     print("gather_sorted: ok")
     print("apply_sorted_unique: ok")
     return 0

@@ -16,21 +16,33 @@ no JAX.
 
     python3 tools/port_profile.py --ab OTHER_TREE
 
-instead times kernels 3 and 4 at their main-path shapes in OTHER_TREE (an
-unpacked checkout, e.g. the parent commit's `git archive`) and in this
-tree, in the order other, this, this, other, each in its own process
-(`--time-kernels TREE`, which imports that tree's tsxcount_tpu_torch and
-builds its kernels), and prints one JSON line per run: kernel 3 on a
-2^26-row store run + 2^25-row batch run (k=14), and kernel 4 on one split
-round of 2^24 destinations into the k=14, l=26 table's 2^26-slot columns,
-once as the per-column loop (five one-column calls, every tree has it) and
-once as one call over the four columns the table passes (where the tree's
-wrapper takes a column sequence).  Medians of CUDA-event-timed calls.
+instead times kernels 1, 3, 4 and 5 at their main-path shapes in
+OTHER_TREE (an unpacked checkout, e.g. the parent commit's `git archive`)
+and in this tree, in the order other, this, this, other, each in its own
+process (`--time-kernels TREE`, which imports that tree's
+tsxcount_tpu_torch and builds its kernels), and prints one JSON line per
+run:
+  - kernel 3 on a 2^26-row store run + 2^25-row batch run (k=14);
+  - kernel 4 on one split round of 2^24 destinations into the k=14, l=26
+    table's 2^26-slot columns, once as the per-column loop (five
+    one-column calls, every tree has it) and once as one call over the four
+    columns the table passes (where the tree's wrapper takes a column
+    sequence);
+  - kernel 5 on the same round's probe (every active row reads its slot)
+    of the two k=14 probe columns, as the per-column loop and as one
+    column-set call (where the tree's wrapper takes a sequence);
+  - kernel 1 on 2^24 rows at density 0.5 with two int32 columns, with
+    int32 flags and with bool flags (where the tree accepts them).
+Medians of CUDA-event-timed calls (`*_ms`, the card's time), and for
+kernels 5 and 1 also the host's time per wrapper call (`*_host_us`,
+perf_counter over back-to-back calls with no device sleep ahead of them:
+what the Python side of a wrapper costs on a host-bound path).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -42,6 +54,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parent.parent
+HOST_REPS = 50  # wrapper calls per host-time figure
 
 
 def device_busy_us(prof) -> float:
@@ -85,11 +98,14 @@ def traced(name: str, fn, out: Path, trace: bool = False) -> None:
 
 def median_ms(fn, reps: int = 21) -> float:
     """Median device time of fn() over reps calls after one warm-up, each
-    call between its own pair of CUDA events."""
+    call between its own pair of CUDA events.  The calls queue up behind a
+    ~50 ms device sleep, so the wrappers' Python time never leaves the
+    card idle inside an event pair (device time, not launch overhead)."""
     fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
     for t0, t1 in events:
         t0.record()
         fn()
@@ -98,13 +114,28 @@ def median_ms(fn, reps: int = 21) -> float:
     return float(np.median([t0.elapsed_time(t1) for t0, t1 in events]))
 
 
+def host_us(fn, reps: int = HOST_REPS) -> float:
+    """Host microseconds per fn() call: perf_counter around reps
+    back-to-back calls after one warm-up, the device free before them (the
+    launches queue; the synchronize after the loop is not counted)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
 def time_kernels(tree: Path) -> dict:
-    """Kernels 3 and 4 of the tsxcount_tpu_torch in `tree`, at their
+    """Kernels 1, 3, 4 and 5 of the tsxcount_tpu_torch in `tree`, at their
     main-path shapes, on data made on the card from fixed seeds (the same
     in every tree)."""
     sys.path.insert(0, str(tree))
     from tsxcount_tpu_torch import _build
     from tsxcount_tpu_torch.ops import apply as apply_mod
+    from tsxcount_tpu_torch.ops import compact as compact_mod
     from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted
 
     if Path(_build.__file__).resolve().parents[1] != tree.resolve():
@@ -168,6 +199,42 @@ def time_kernels(tree: Path) -> dict:
         sub_c, sub_v = [cols[c] for c in keep], [vals[c] for c in keep]
         res["k4_round_ms"] = median_ms(
             lambda: apply_mod.apply_sorted_unique(sub_c, dsta, sub_v))
+
+    # kernel 5: the round's probe of the key word and the used flag
+    dstg = torch.cat([2 * pos + 1, torch.full((width - active,), 1 << 30,
+                                              device=dev, dtype=torch.int64)]
+                     ).to(torch.int32)
+    probe = [cols[0], cols[4]]
+
+    def gather_loop():
+        for col in probe:
+            apply_mod.gather_sorted(col, dstg)
+
+    res["k5_per_column_loop_ms"] = median_ms(gather_loop)
+    res["k5_per_column_loop_host_us"] = host_us(gather_loop)
+    res["k5_round_ms"] = res["k5_round_host_us"] = None
+    if "cols" in inspect.signature(apply_mod.gather_sorted).parameters:
+        gather_round = lambda: apply_mod.gather_sorted(probe, dstg)
+        res["k5_round_ms"] = median_ms(gather_round)
+        res["k5_round_host_us"] = host_us(gather_round)
+    del flat, cols, vals, dsta, dstg, pos, end
+
+    # kernel 1: the batch dedupe's shape, operand + position columns
+    n = 1 << 24
+    mask = torch.rand(n, device=dev, generator=g) < 0.5
+    main = (torch.randint(0, 1 << 29, (n,), device=dev, generator=g,
+                          dtype=torch.int32),
+            torch.arange(n, dtype=torch.int32, device=dev))
+    flag32 = mask.to(torch.int32)
+    res["k1_flagged"] = int(mask.sum())
+    compact32 = lambda: compact_mod.compact_flagged(flag32, main)
+    res["k1_int32_flags_ms"] = median_ms(compact32)
+    res["k1_int32_flags_host_us"] = host_us(compact32)
+    res["k1_bool_flags_ms"] = res["k1_bool_flags_host_us"] = None
+    if torch.bool in getattr(compact_mod, "FLAG_DTYPES", ()):
+        compact8 = lambda: compact_mod.compact_flagged(mask, main)
+        res["k1_bool_flags_ms"] = median_ms(compact8)
+        res["k1_bool_flags_host_us"] = host_us(compact8)
     res["device"] = torch.cuda.get_device_name(0)
     return res
 
@@ -213,7 +280,7 @@ def main() -> int:
     _build.kernels()
 
     n = 1 << 24
-    flag = torch.from_numpy((rng.random(n) < 0.5).astype(np.int32)).to(dev)
+    flag = torch.from_numpy(rng.random(n) < 0.5).to(dev)  # bool, as callers
     op = torch.randint(0, 1 << 29, (n,), dtype=torch.int32, device=dev)
     pos = torch.arange(n, dtype=torch.int32, device=dev)
     a = torch.sort(torch.randint(0, 1 << 29, (n,), device=dev)).values

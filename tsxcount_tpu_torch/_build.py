@@ -46,15 +46,16 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 # entry point -> (restype, argtypes); see the extern "C" blocks in csrc/
 _SIGNATURES = {
-    "tsx_compact_scratch_elems": (_I64, [_I64]),
-    "tsx_compact_flagged": (_INT, [_P, _P, _P, _P, _INT, _I64, _P, _P]),
+    "tsx_compact_scratch_bytes": (_I64, [_I64]),
+    "tsx_compact_flagged": (_INT, [_P, _INT, _P, _P, _P, _INT, _I64, _P,
+                                   _P]),
     "tsx_merge_scratch_elems": (_I64, [_I64, _I64]),
     "tsx_merge_sorted": (_INT, [_P, _P, _P, _P, _INT, _INT, _I64, _I64,
                                 _P, _P]),
     "tsx_merge_dedupe_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "tsx_merge_dedupe_sorted": (_INT, [_P, _P, _P, _INT, _I64, _I64,
                                        ctypes.c_uint32, _P, _P, _P]),
-    "tsx_gather_sorted": (_INT, [_P, _I64, _P, _I64, _P, _P]),
+    "tsx_gather_sorted": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
     "tsx_apply_sorted_unique": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
     "tsx_error_string": (ctypes.c_char_p, [_INT]),
 }

@@ -206,15 +206,13 @@ class QuotientTable:
         safe_pos = torch.where(active_s, ckey_s, 0)
 
         # slot contents (key lanes + used flag): kernel 5 reads every
-        # active row's slot (the rows of a run read the same word)
+        # active row's slot (the rows of a run read the same word), every
+        # probed column in one launch
         probe_cols = list(range(lanes)) + [cols - 1]
         dstg = torch.where(active_s, (safe_pos << 1) | 1, DEAD).to(torch.int32)
-        g_cols = []
-        spilled = state.spilled
-        for c in probe_cols:
-            gc, ov = gather_sorted(self._col(state.slots, c), dstg)
-            g_cols.append(gc)
-            spilled = spilled + ov
+        g_cols, ov = gather_sorted(
+            [self._col(state.slots, c) for c in probe_cols], dstg)
+        spilled = state.spilled + ov
 
         used_s = g_cols[-1] != 0
         slotkey0_s = cleared_s[0] | r
@@ -255,8 +253,7 @@ class QuotientTable:
         # compact the surviving rows to an exact prefix (kernel 1)
         active_next = active_s & ~resolved
         n_left = active_next.sum()
-        comp = compact_flagged(active_next.to(torch.int32),
-                               (pos0_s, counts_s) + cleared_s)
+        comp = compact_flagged(active_next, (pos0_s, counts_s) + cleared_s)
         active_c = torch.arange(width, device=dev) < n_left
         carry = (comp[0], tuple(comp[2:]), comp[1], active_c)
         return new_state, carry, active.sum(), n_left

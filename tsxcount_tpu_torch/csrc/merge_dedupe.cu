@@ -32,21 +32,11 @@
 //      (head, sum); exact modulo 2^64, so one key may span any number of
 //      tiles.
 //
-// Where a look-back goes wrong, and what this one does about it:
-//   * forward progress: the tile index comes from an atomic counter, zeroed
-//     on every call, not from blockIdx, so a block only waits on tiles that
-//     running blocks hold, and each of those publishes its aggregate before
-//     it waits itself;
-//   * publication order: a tile's status is ONE 64-bit word, its flag
-//     (aggregate or inclusive) in the top bits and the head count below,
-//     stored and loaded whole (volatile), so no reader sees a flag without
-//     its value and no fence is needed.  Carrying the 64-bit sums in the
-//     look-back too took a separate flag, a release store and a second
-//     load per window: 1.62 ms on an H100 at the main case, against
-//     1.39 ms with one word;
-//   * shared memory: the tile is 2048 rows up to 3 key words and 1024 rows
-//     beyond (at most 40 KB at 8 key words, under the 48 KB of static shared
-//     memory, four blocks on each SM).
+// The look-back (lookback.cuh, shared with kernel 1) carries only the head
+// counts, one 64-bit word per tile; the tile index comes from an atomic
+// counter, zeroed on every call.  Shared memory: the tile is 2048 rows up
+// to 3 key words and 1024 rows beyond (at most 40 KB at 8 key words, under
+// the 48 KB of static shared memory, four blocks on each SM).
 //
 // Bound: device-memory bandwidth.  Each input row is read once (keys and
 // count, coalesced), each run written once (coalesced); the merge-path
@@ -61,13 +51,13 @@
 // unwritten); stats[0] = n_runs, stats[1] = n_runs less the trailing invalid
 // run if there is one.
 
+#include "lookback.cuh"
 #include "merge.cuh"
 
 namespace tsx {
 namespace {
 
 constexpr int kDedupeThreads = 256;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Rows a thread merges at n_keys key words; the tile is kDedupeThreads
 // times that.
@@ -83,19 +73,6 @@ struct Rbk {
 
 __device__ __forceinline__ Rbk rbk(const Rbk& x, const Rbk& y) {  // x, then y
   return {x.n + y.n, y.n > 0 ? y.s : x.s + y.s};
-}
-
-// A tile's status word: 0 until published, then the flag in the top two
-// bits and the head count (aggregate, or inclusive of every earlier tile)
-// below.
-constexpr uint64_t kAggregate = uint64_t(1) << 62;
-constexpr uint64_t kInclusive = uint64_t(2) << 62;
-constexpr uint64_t kCountMask = kAggregate - 1;
-
-__device__ __forceinline__ void publish(uint64_t* status, int64_t t,
-                                        uint64_t flag, int64_t heads) {
-  *reinterpret_cast<volatile uint64_t*>(status + t) =
-      flag | static_cast<uint64_t>(heads);
 }
 
 // Exclusive scan of one Rbk per thread over a block of NT threads; *total
@@ -127,34 +104,6 @@ __device__ __forceinline__ Rbk block_exclusive_rbk(Rbk v, Rbk* warp_sums,
            __shfl_up_sync(kFullWarp, v.s, 1)};
   if (lane == 0) left = Rbk{0, 0};
   return rbk(before, left);
-}
-
-// The run heads before tile t > 0, by the 32 lanes of one warp: lane i
-// reads tile base - i's status, waiting while it is 0; the counts up to
-// the nearest inclusive one are summed, and the walk goes on 32 tiles
-// further back if the window held none.  Lane 0's result counts.  (Two,
-// four or eight tiles a lane measured slower on an H100: a wider window
-// waits on more tiles that are still being merged.)
-__device__ int64_t look_back(const uint64_t* status, int64_t t) {
-  const int lane = threadIdx.x & 31;
-  int64_t before = 0;
-  for (int64_t base = t - 1;; base -= 32) {
-    const int64_t j = base - lane;
-    uint64_t w = kInclusive;  // before tile 0: nothing, as an inclusive
-    if (j >= 0) {
-      const volatile uint64_t* sj = status + j;
-      while ((w = *sj) == 0) {
-      }
-    }
-    const unsigned inclusive =
-        __ballot_sync(kFullWarp, (w & ~kCountMask) == kInclusive);
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    int64_t c = lane <= stop ? static_cast<int64_t>(w & kCountMask) : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(kFullWarp, c, d);
-    before += c;
-    if (inclusive) return before;
-  }
 }
 
 template <int NK>

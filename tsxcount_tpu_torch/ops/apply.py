@@ -7,9 +7,9 @@ patterns) through "doubled" destinations: element e of `dst2` (int32) is
 live iff it is odd, and then names word `dst2[e] >> 1`.  Dead elements
 (even values, and the `1 << 30` tail of inactive rows) are ignored.  The
 callers sort by slot, so `dst2` is non-decreasing.  apply_sorted_unique
-relies on its live words being distinct, and updates every column of a
-table round in one launch; gather_sorted needs neither order nor distinct
-words (the table's probe reads one word for every row of a run).
+relies on its live words being distinct; gather_sorted needs neither
+order nor distinct words (the table's probe reads one word for every row
+of a run).  Each takes the column set of a table round in one launch.
 
 Each function returns, beside its result, the TPU kernel's window-overflow
 count: a device int32 zero here (no window exists to overflow), which the
@@ -33,48 +33,59 @@ def _live(col: torch.Tensor, dst2: torch.Tensor):
     return ((d & 1) == 1) & (addr < col.shape[0]), addr
 
 
-def gather_sorted_plain(col: torch.Tensor, dst2: torch.Tensor
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of gather_sorted."""
-    live, addr = _live(col, dst2)
-    out = torch.where(live, col[torch.where(live, addr, 0)], 0)
-    return out, torch.zeros((), dtype=torch.int32, device=col.device)
+def _columns(cols) -> tuple[tuple, bool]:
+    """(columns tuple, whether one column came as a bare tensor)."""
+    if isinstance(cols, torch.Tensor):
+        return (cols,), True
+    return tuple(cols), False
 
 
-def gather_sorted(col: torch.Tensor, dst2: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """out[e] = col[dst2[e] >> 1] for odd dst2[e], else 0.
+def gather_sorted_plain(cols, dst2: torch.Tensor):
+    """Plain PyTorch version of gather_sorted (same forms)."""
+    cols_t, single = _columns(cols)
+    live, addr = _live(cols_t[0], dst2)
+    idx = torch.where(live, addr, 0)
+    outs = tuple(torch.where(live, c[idx], 0) for c in cols_t)
+    zero = torch.zeros((), dtype=torch.int32, device=dst2.device)
+    return (outs[0] if single else outs), zero
 
-    col: int32 [S] (uint32 bit patterns, a contiguous column region);
-    dst2: int32 [W].  Returns (out int32 [W], overflow int32 0-d zero).
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation); any other device raises.
+
+def gather_sorted(cols, dst2: torch.Tensor):
+    """outs[c][e] = cols[c][dst2[e] >> 1] for odd dst2[e], else 0.
+
+    cols: one int32 column region [S] (uint32 bit patterns), or a sequence
+    of 1..16 such regions of one length; dst2: int32 [W].  Returns (out
+    int32 [W], or a tuple of one out per column, and an overflow int32 0-d
+    zero).  A column set is that many calls of the TPU kernel in ONE
+    launch, which reads dst2 once.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel on the current stream (no
+    synchronisation); any other device raises.
     """
-    dev = _build.check_columns("gather_sorted", [col], (torch.int32,))
-    _build.check_columns("gather_sorted", [dst2], (torch.int32,), device=dev)
+    name = "gather_sorted"
+    cols_t, single = _columns(cols)
+    if not 1 <= len(cols_t) <= MAX_APPLY_COLS:
+        raise ValueError(f"{name}: 1..{MAX_APPLY_COLS} columns")
+    dev = _build.check_columns(name, list(cols_t), (torch.int32,),
+                               cols_t[0].shape[0])
+    _build.check_columns(name, [dst2], (torch.int32,), device=dev)
     if dev.type == "cpu":
-        return gather_sorted_plain(col, dst2)
-    _build.require_cuda("gather_sorted", dev)
-    out = torch.empty_like(dst2)
+        return gather_sorted_plain(cols, dst2)
+    _build.require_cuda(name, dev)
+    outs = tuple(torch.empty_like(dst2) for _ in cols_t)
     over = torch.zeros((), dtype=torch.int32, device=dev)
     lib = _build.kernels()
-    rc = lib.tsx_gather_sorted(col.data_ptr(), col.shape[0], dst2.data_ptr(),
-                               dst2.shape[0], out.data_ptr(), _build.stream())
-    _build.check(rc, "gather_sorted")
-    _build.count_launch("gather_sorted")
-    return out, over
-
-
-def _apply_args(cols, vals):
-    """(cols tuple, vals tuple): one column may come as a bare tensor."""
-    if isinstance(cols, torch.Tensor):
-        return (cols,), (vals,)
-    return tuple(cols), tuple(vals)
+    rc = lib.tsx_gather_sorted(
+        _build.ptr_array(cols_t), _build.ptr_array(outs), len(cols_t),
+        cols_t[0].shape[0], dst2.data_ptr(), dst2.shape[0], _build.stream())
+    _build.check(rc, name)
+    _build.count_launch(name)
+    return (outs[0] if single else outs), over
 
 
 def apply_sorted_unique_plain(cols, dst2: torch.Tensor, vals):
     """Plain PyTorch version of apply_sorted_unique (also in place)."""
-    cols_t, vals_t = _apply_args(cols, vals)
+    cols_t, single = _columns(cols)
+    vals_t = (vals,) if single else tuple(vals)
     live, addr = _live(cols_t[0], dst2)
     a = addr[live]
     for col, val in zip(cols_t, vals_t):
@@ -99,7 +110,8 @@ def apply_sorted_unique(cols, dst2: torch.Tensor, vals
     launch the kernel on the current stream; any other device raises.
     """
     name = "apply_sorted_unique"
-    cols_t, vals_t = _apply_args(cols, vals)
+    cols_t, single = _columns(cols)
+    vals_t = (vals,) if single else tuple(vals)
     if not 1 <= len(cols_t) <= MAX_APPLY_COLS or len(vals_t) != len(cols_t):
         raise ValueError(f"{name}: 1..{MAX_APPLY_COLS} columns, one value "
                          f"column each")

@@ -13,6 +13,7 @@ import torch
 
 from tsxcount_tpu_torch import _build
 
+FLAG_DTYPES = (torch.int32, torch.bool)
 _COL_DTYPES = (torch.int32, torch.int64)
 
 
@@ -28,14 +29,14 @@ def compact_flagged_plain(flag: torch.Tensor, cols) -> tuple:
 
 
 def compact_flagged(flag: torch.Tensor, cols) -> tuple:
-    """flag int32 [T]; cols: int32/int64 [T] columns (at most 16).
+    """flag int32 or bool [T]; cols: int32/int64 [T] columns (at most 16).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (no synchronisation); any other device raises.
     """
     cols = tuple(cols)
     n = flag.shape[0]
-    dev = _build.check_columns("compact_flagged", [flag], (torch.int32,))
+    dev = _build.check_columns("compact_flagged", [flag], FLAG_DTYPES)
     _build.check_columns("compact_flagged", cols, _COL_DTYPES, n, dev)
     if dev.type == "cpu":
         return compact_flagged_plain(flag, cols)
@@ -46,13 +47,12 @@ def compact_flagged(flag: torch.Tensor, cols) -> tuple:
     if n == 0:
         return out
     lib = _build.kernels()
-    scratch = torch.empty(
-        lib.tsx_compact_scratch_elems(n), dtype=torch.int64, device=dev
-    )
+    scratch = torch.empty(lib.tsx_compact_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
     rc = lib.tsx_compact_flagged(
-        flag.data_ptr(), _build.ptr_array(cols), _build.ptr_array(out),
-        _build.width_array(cols), len(cols), n, scratch.data_ptr(),
-        _build.stream(),
+        flag.data_ptr(), flag.element_size(), _build.ptr_array(cols),
+        _build.ptr_array(out), _build.width_array(cols), len(cols), n,
+        scratch.data_ptr(), _build.stream(),
     )
     _build.check(rc, "compact_flagged")
     _build.count_launch("compact_flagged")

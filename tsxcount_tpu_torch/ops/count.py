@@ -124,7 +124,7 @@ def count_unique(kmers, valid: torch.Tensor,
     ops_sorted = sort_ops(ops)
     flag = boundary_flags(ops_sorted)
     arange = torch.arange(p, dtype=torch.int32, device=dev)
-    rep = compact_flagged(flag.to(torch.int32), tuple(ops_sorted) + (arange,))
+    rep = compact_flagged(flag, tuple(ops_sorted) + (arange,))
     n_flags = flag.sum()
     # past the last run, clamp positions to p so the differences vanish
     pos = torch.where(arange < n_flags, rep[-1], p)
