@@ -17,7 +17,9 @@ non-zero and no result line is printed):
      its kernel_time line), its main case called 10 more times, and
      kernel 3's main and one-key cases too, bit-identical every time
      (their tiles finish in a different order on every call), with kernel
-     3's scratch bytes;
+     3's scratch bytes; kernel 2 at one key word (the main shape) and at
+     2, 3 and 8 full 32-bit words, timed at 1, 2 and 8 (2 and 8 in its
+     kernel_time line);
      kernel 4 timed as the table calls it, one launch over a round's four
      value columns, and kernel 5 as one launch over the two k=14 probe
      columns and as one column, both with the 32-byte sectors they touch
@@ -25,7 +27,8 @@ non-zero and no result line is printed):
   4. end to end, sort backend: the seed-42 bench FASTQ (bench.py, 20,000
      reads) counted at k=14 with the CLI's defaults; totals, the full
      sorted export against an independent numpy count, point queries, the
-     kernels' launch counts on that run, and a second batch geometry that
+     kernels' launch counts on that run (kernel 2 exactly once: one flush
+     of two runs), and a second batch geometry that
      must give the identical export;
   5. end to end, table backend: the same file at k=14, l=26 (totals,
      spill, fill factor, export and queries against the numpy count,
@@ -266,15 +269,22 @@ def check_compact_repeats(flag, cols, rows: int) -> None:
 
 
 def check_merge(results: dict) -> None:
-    n = 1 << 24
+    """Kernel 2 against its plain version: the main shape (one key word,
+    int32 payload, 2 x 2^24 rows), one key over every row (stability), and
+    2, 3 and 8 full 32-bit key words at 2 x 2^21 rows; timed at the main
+    shape (the contract's keys) and at 2 and 8 key words (extras), each
+    beside its bound: (4 * n_keys + 4) B read and written per row."""
     worst = 0
+    extra = {}
     cases = {
         "random": (1, 1 << 29),
         "one_key": (1, 1),
         "n_keys2_full32": (2, 1 << 32),
+        "n_keys3_full32": (3, 1 << 32),
+        "n_keys8_full32": (8, 1 << 32),
     }
     for case, (n_keys, hi) in cases.items():
-        size = n if n_keys == 1 else 1 << 21
+        size = 1 << 24 if n_keys == 1 else 1 << 21
         a = sorted_keys(size, n_keys, hi)
         b = sorted_keys(size, n_keys, hi)
         a_cols = tuple(gpu(a[:, j]) for j in range(n_keys)) + (
@@ -287,16 +297,20 @@ def check_merge(results: dict) -> None:
         phase("kernel", name="merge_sorted", case=case, rows=2 * size,
               n_keys=n_keys, max_abs_err=err)
         worst = max(worst, err)
+        bound = bytes_ms(2 * (2 * size) * (4 * n_keys + 4))
         if case == "random":
             ms = cuda_ms(lambda: merge_sorted(a_cols, b_cols))
             plain_ms = cuda_ms(lambda: merge_sorted_plain(a_cols, b_cols))
             keys = torch.cat([a_cols[0], b_cols[0]])
             library_ms = cuda_ms(lambda: torch.sort(keys, stable=True))
-            # key + payload of both runs read, the merged rows written
-            bound = bytes_ms(2 * (2 * size) * 2 * 4)
+            main_bound = bound
+        elif case in ("n_keys2_full32", "n_keys8_full32"):
+            extra[f"ms_n_keys{n_keys}"] = cuda_ms(
+                lambda: merge_sorted(a_cols, b_cols, n_keys=n_keys))
+            extra[f"bound_ms_n_keys{n_keys}"] = bound
     results["merge_sorted"] = dict(max_abs_err=worst, ms=ms,
-                                   plain_ms=plain_ms,
-                                   library_ms=library_ms, bound_ms=bound)
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=main_bound, extra=extra)
 
 
 def dedupe_run(n: int, n_keys: int, hi: int, n_invalid: int, inv_min: int,
@@ -699,6 +713,10 @@ def end_to_end(path: Path, want_keys, want_counts) -> dict:
     for name in SORT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} not launched on the path")
+    # two batches, one flush of two runs: one merge of the merge tree
+    if launches["merge_sorted"] != 1:
+        raise AssertionError(f"merge_sorted launched "
+                             f"{launches['merge_sorted']} times, not once")
 
     check_queries(counter, want_keys, want_counts)
 

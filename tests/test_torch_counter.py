@@ -50,6 +50,20 @@ def test_dump_totals_and_queries_match_jax(k):
     assert st["distinct_kmers"] == ref.distinct
 
 
+@pytest.mark.parametrize("backend", ["sort", "table"])
+def test_stats_keys_contain_jax_keys(backend):
+    """After one small count, the port's stats() has every key of the JAX
+    package's (device_seconds included), with equal totals."""
+    rng = np.random.default_rng(5)
+    reads = rand_reads(rng, 20, 20, 90)
+    ref, port = _pair(reads, 14, l=12, batch_words=64, backend=backend)
+    pst, rst = port.stats(), ref.stats()
+    assert set(rst) <= set(pst), set(rst) - set(pst)
+    assert isinstance(pst["device_seconds"], float)
+    for key in ("distinct_kmers", "total_kmers", "batches", "backend"):
+        assert pst[key] == rst[key]
+
+
 def test_check_against_jax_golden(tmp_path):
     rng = np.random.default_rng(3)
     reads = rand_reads(rng, 30, 20, 90)

@@ -107,6 +107,11 @@ def _sorted_run(rng, n, n_keys, hi):
     (1024, 1024, 1, 2**32), (2000, 48, 1, 50), (0, 2048, 2, 2**32),
     (30000, 15000, 2, 4), (7000, 29000, 3, 3), (5, 0, 1, 9),
     (40000, 40000, 8, 2),
+    # many tiles (2048 rows up to 3 key words, 1024 beyond), lengths off
+    # the tile: full 32-bit words, one run empty, every key equal
+    (300001, 250000, 1, 2**32), (200000, 150001, 3, 2**32),
+    (100000, 90001, 8, 2**32), (0, 100003, 3, 7), (100003, 0, 8, 2**32),
+    (120000, 100001, 1, 1), (50000, 40001, 8, 1),
 ])
 def test_merge_kernel(dev, m, n, n_keys, hi):
     rng = np.random.default_rng(m + n + n_keys)
@@ -118,6 +123,17 @@ def test_merge_kernel(dev, m, n, n_keys, hi):
     b = tuple(_t(b_keys[:, j], dev) for j in range(n_keys)) + (
         torch.arange(n, dtype=torch.int32, device=dev) + 100000,
         _t(rng.integers(0, 2**40, n), dev))
+    for g, w in zip(merge_sorted(a, b, n_keys),
+                    merge_sorted_plain(a, b, n_keys)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_keys", [1, 3, 8])
+def test_merge_kernel_keys_only(dev, n_keys):
+    """No payload column: the keys alone, across many tiles."""
+    rng = np.random.default_rng(40 + n_keys)
+    a = tuple(_t(c, dev) for c in _sorted_run(rng, 70001, n_keys, 2**32).T)
+    b = tuple(_t(c, dev) for c in _sorted_run(rng, 60000, n_keys, 2**32).T)
     for g, w in zip(merge_sorted(a, b, n_keys),
                     merge_sorted_plain(a, b, n_keys)):
         assert torch.equal(g, w)

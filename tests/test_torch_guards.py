@@ -79,6 +79,8 @@ def test_store_and_table_default_to_the_card(make):
     dict(lsm=True), dict(hash_first=True), dict(hash_first="mix"),
     dict(hash_first="gf2"), dict(mix_prefix=True),
     dict(collapse_homopolymers=True), dict(k=113), dict(k=127),
+    dict(lsm_growth=4), dict(progress_every=1),
+    dict(backend="table", progress_every=5),
 ], ids=str)
 def test_out_of_slice_options_raise(kw):
     args = dict(k=14, device="cpu") | kw
@@ -101,6 +103,23 @@ def test_in_slice_options_accepted():
                dict(mix_prefix=False), dict(backend="SERIAL"), dict(k=112)):
         c = KmerCounter(**(dict(k=14, l=8, device="cpu") | kw))
         assert c.backend == "sort" and c.lsm is False
+
+
+@pytest.mark.parametrize("backend", ["sort", "table"])
+def test_reference_keywords_accepted_at_defaults(backend):
+    """lsm_growth and progress_every, keywords of the JAX package's
+    counter, are taken at their defaults, by name and in the JAX package's
+    positions (after lsm, and after collapse_homopolymers)."""
+    for progress_every in (0, -1):  # the JAX package takes <= 0 as off
+        c = KmerCounter(k=14, l=8, backend=backend, lsm_growth=8,
+                        progress_every=progress_every, device="cpu")
+        assert c.backend == backend and c.lsm is False
+    args = (14, 8, 4, backend, 1 << 16, "drop", 7, False, 64, 0, 4, False,
+            None, 8, 0, 3, 0, False)
+    pos = KmerCounter(*args, 0, device="cpu")
+    assert pos.threads == 1 and pos.prefetch_depth == 3
+    with pytest.raises(NotImplementedError, match="progress_every=1"):
+        KmerCounter(*args, 1, device="cpu")
 
 
 def test_wrappers_refuse_other_devices():
@@ -187,3 +206,24 @@ def test_native_parser_built_from_source_into_ignored_dir():
     cmd = native.compile_command(out)
     assert "libfastxpack.so" not in " ".join(cmd)
     assert "-march=native" not in cmd  # the build dir may reach other hosts
+
+
+def test_merge_stamps_patch_current_kernel_source():
+    """tools/merge_stamps.py patches a copy of csrc/merge.cu by anchored
+    edits: every anchor is still there once, and each stamp lands in the
+    tile kernel (the package's own source stays as it is)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "merge_stamps", REPO / "tools" / "merge_stamps.py")
+    stamps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(stamps)
+    src = (PORT / "csrc" / "merge.cu").read_text()
+    out = stamps.stamped_source(src)
+    assert "g_stamps" not in src
+    kernel = out[out.index("merge_tile_kernel(ColSet a"):
+                 out.index("int64_t merge_scratch_elems")]
+    for stamp in ("c0 = clock64()", "c1 = clock64()", "c2 = clock64()",
+                  "g[3] = clock64()"):
+        assert kernel.count(stamp) == 1, stamp
+    assert out.count('extern "C" int tsx_merge_stamps') == 1

@@ -131,9 +131,19 @@ def main() -> int:
         return tuple(t(np.ascontiguousarray(keys[:, j]))
                      for j in range(n_keys)) + extra(n)
 
+    # kernel 2: tiles of 1024 rows at every key width; the cases after the
+    # first six cross 16 tiles or more at 1, 3 and 8 key words, with an
+    # int32 and an int64 payload column: full 32-bit words (top bit set),
+    # lengths off the tile, one run empty, and every key equal (stability:
+    # A's rows first, each run in order)
     for m, n, nk, hi in [(1024, 1024, 1, 2**32), (2000, 48, 1, 50),
                          (0, 2048, 2, 2**32), (3000, 1500, 2, 4),
-                         (700, 2900, 3, 3), (5, 0, 1, 9)]:
+                         (700, 2900, 3, 3), (5, 0, 1, 9),
+                         (20001, 17000, 1, 2**32), (19000, 18111, 3, 2**32),
+                         (9000, 8501, 8, 2**32), (40000, 0, 1, 2**32),
+                         (0, 33000, 3, 5), (0, 17000, 8, 3),
+                         (21000, 16500, 1, 1), (18000, 19001, 3, 1),
+                         (9500, 9000, 8, 1)]:
         pay = lambda k: (torch.arange(k, dtype=torch.int32),
                          t(rng.integers(0, 2**40, k)))
         a, b = run(m, nk, hi, pay), run(n, nk, hi, pay)
@@ -144,6 +154,31 @@ def main() -> int:
                                     n, scratch.data_ptr(), None) == 0
         for g, w in zip(out, merge_sorted_plain(a, b, nk)):
             assert torch.equal(g, w), ("merge", m, n, nk)
+        # the partition alone: A rows before each tile boundary, as the
+        # stable merge places them
+        from_a = torch.cat([torch.ones(m, dtype=torch.int64),
+                            torch.zeros(n, dtype=torch.int64)])
+        diags = torch.arange(scratch.numel()) * 1024
+        before = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(
+            merge_sorted_plain(a[:nk] + (from_a[:m],), b[:nk] + (from_a[m:],),
+                               nk)[nk], 0)])
+        scratch.fill_(-7)
+        assert lib.tsx_merge_partition(P(a[:nk]), P(b[:nk]), nk, m, n,
+                                       scratch.data_ptr(), None) == 0
+        assert torch.equal(scratch, before[diags.clamp(max=m + n)]), (
+            "merge_partition", m, n, nk)
+    # no payload column: the keys alone, across many tiles
+    for nk in (1, 8):
+        a = run(20000, nk, 2**32, lambda k: ())
+        b = run(17001, nk, 2**32, lambda k: ())
+        out = tuple(torch.full((37001,), -7, dtype=torch.int32)
+                    for _ in range(nk))
+        scratch = torch.empty(lib.tsx_merge_scratch_elems(20000, 17001),
+                              dtype=torch.int64)
+        assert lib.tsx_merge_sorted(P(a), P(b), P(out), W(a), nk, nk, 20000,
+                                    17001, scratch.data_ptr(), None) == 0
+        for g, w in zip(out, merge_sorted_plain(a, b, nk)):
+            assert torch.equal(g, w), ("merge keys only", nk)
     print("merge_sorted: ok")
 
     # kernel 3: tiles of 2048 rows (1024 beyond 3 key words); the last

@@ -16,13 +16,17 @@ no JAX.
 
     python3 tools/port_profile.py --ab OTHER_TREE
 
-instead times kernels 1, 3, 4 and 5 at their main-path shapes in
+instead times kernels 1-5 at their main-path shapes in
 OTHER_TREE (an unpacked checkout, e.g. the parent commit's `git archive`)
 and in this tree, in the order other, this, this, other, each in its own
 process (`--time-kernels TREE`, which imports that tree's
 tsxcount_tpu_torch and builds its kernels), and prints one JSON line per
 run:
   - kernel 3 on a 2^26-row store run + 2^25-row batch run (k=14);
+  - kernel 2 on two 2^24-row runs of one key word and an int32 payload
+    (the merge tree's shape), and on two 2^21-row runs of 2 and of 8 full
+    32-bit key words; its partition launch alone where the tree has an
+    entry point for it (`k2_partition_ms`, else null);
   - kernel 4 on one split round of 2^24 destinations into the k=14, l=26
     table's 2^26-slot columns, once as the per-column loop (five
     one-column calls, every tree has it) and once as one call over the four
@@ -129,13 +133,14 @@ def host_us(fn, reps: int = HOST_REPS) -> float:
 
 
 def time_kernels(tree: Path) -> dict:
-    """Kernels 1, 3, 4 and 5 of the tsxcount_tpu_torch in `tree`, at their
+    """Kernels 1-5 of the tsxcount_tpu_torch in `tree`, at their
     main-path shapes, on data made on the card from fixed seeds (the same
     in every tree)."""
     sys.path.insert(0, str(tree))
     from tsxcount_tpu_torch import _build
     from tsxcount_tpu_torch.ops import apply as apply_mod
     from tsxcount_tpu_torch.ops import compact as compact_mod
+    from tsxcount_tpu_torch.ops.merge import merge_sorted
     from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted
 
     if Path(_build.__file__).resolve().parents[1] != tree.resolve():
@@ -165,6 +170,43 @@ def time_kernels(tree: Path) -> dict:
     res["k3_runs"] = int(n_runs)
     res["k3_ms"] = median_ms(lambda: merge_dedupe_sorted(a, b, 1, inv14))
     del store, s_cnt, batch, b_cnt, a, b, s_keys
+
+    # kernel 2: the merge tree's runs (one key word, int32 payload), and
+    # 2 and 8 full 32-bit key words; the partition launch alone where the
+    # tree has an entry point for it
+    def merge_run(rows: int, n_keys: int) -> tuple:
+        if n_keys == 1:
+            keys = (torch.sort(torch.randint(0, 1 << 29, (rows,), device=dev,
+                                             generator=g)).values,)
+        else:  # (word 0, word 1) ascending as one signed int64, then words
+            hi = torch.randint(-(1 << 31), 1 << 31, (rows,), device=dev,
+                               generator=g)
+            lo = torch.randint(0, 1 << 32, (rows,), device=dev, generator=g)
+            v = torch.sort((hi << 32) | lo).values
+            keys = ((v >> 32) + (1 << 31), v & 0xFFFFFFFF, *(
+                torch.randint(0, 1 << 32, (rows,), device=dev, generator=g)
+                for _ in range(n_keys - 2)))
+        return tuple(k.to(torch.int32) for k in keys) + (
+            torch.arange(rows, dtype=torch.int32, device=dev),)
+
+    for n_keys, rows, key in ((1, 1 << 24, "k2_ms"),
+                              (2, 1 << 21, "k2_n_keys2_ms"),
+                              (8, 1 << 21, "k2_n_keys8_ms")):
+        a, b = merge_run(rows, n_keys), merge_run(rows, n_keys)
+        res[key] = median_ms(lambda: merge_sorted(a, b, n_keys))
+        if n_keys == 1:
+            res["k2_partition_ms"] = None
+            if "tsx_merge_partition" in _build._SIGNATURES:
+                lib = _build.kernels()
+                scratch = torch.empty(
+                    lib.tsx_merge_scratch_elems(rows, rows),
+                    dtype=torch.int64, device=dev)
+                pa, pb = _build.ptr_array(a[:1]), _build.ptr_array(b[:1])
+                res["k2_partition_ms"] = median_ms(
+                    lambda: lib.tsx_merge_partition(
+                        pa, pb, 1, rows, rows, scratch.data_ptr(),
+                        _build.stream()))
+        del a, b
 
     # kernel 4: one split round of width 2^24, 12,582,912 active rows on
     # uniform slots of 2^26, the last row of each slot's run live

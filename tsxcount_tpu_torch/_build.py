@@ -52,6 +52,7 @@ _SIGNATURES = {
     "tsx_merge_scratch_elems": (_I64, [_I64, _I64]),
     "tsx_merge_sorted": (_INT, [_P, _P, _P, _P, _INT, _INT, _I64, _I64,
                                 _P, _P]),
+    "tsx_merge_partition": (_INT, [_P, _P, _INT, _I64, _I64, _P, _P]),
     "tsx_merge_dedupe_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "tsx_merge_dedupe_sorted": (_INT, [_P, _P, _P, _INT, _I64, _I64,
                                        ctypes.c_uint32, _P, _P, _P]),

@@ -116,10 +116,12 @@ class KmerCounter:
         merge_every: int = 4,
         canonical: bool = False,
         lsm: bool | None = None,
+        lsm_growth: int = 8,
         threads: int = 0,
         prefetch_depth: int = 3,
         read_len_hint: int = 0,
         collapse_homopolymers: bool = False,
+        progress_every: int = 0,
         hash_first: bool | str | None = None,
         mix_prefix: bool | None = None,
         device: str | torch.device = "cuda",
@@ -132,12 +134,17 @@ class KmerCounter:
             raise _not_ported("canonical=True", "Queue 1 item 9")
         if lsm:
             raise _not_ported("lsm=True", "Queue 1 item 8")
+        if lsm_growth != 8:
+            raise _not_ported(f"lsm_growth={lsm_growth}", "Queue 1 item 8")
         if hash_first:
             raise _not_ported("hash_first", "Queue 1 item 7")
         if mix_prefix:
             raise _not_ported("mix_prefix", "the 'Do not port' list")
         if collapse_homopolymers:
             raise _not_ported("collapse_homopolymers=True", "Queue 1 item 13")
+        if progress_every > 0:  # as in the JAX package, <= 0 is off
+            raise _not_ported(f"progress_every={progress_every}",
+                              "Queue 1 item 13")
         self.spec = KmerSpec(k)
         if backend == "sort" and self.spec.lanes > MAX_LANES:
             raise _not_ported(f"k={k} ({self.spec.lanes} lanes, lane mix)",
@@ -440,7 +447,7 @@ class KmerCounter:
             distinct_kmers=self.distinct,
             total_kmers=self.total_kmers,
             batches=self.batches_processed,
-            host_seconds=round(self.elapsed, 4),
+            device_seconds=round(self.elapsed, 4),
         )
         if self.backend == "table":
             st["fill_factor"] = self.table.fill_factor(self.state)

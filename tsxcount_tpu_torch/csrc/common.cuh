@@ -13,12 +13,12 @@ namespace tsx {
 constexpr int kMaxCols = 16;
 
 // Calls f(std::integral_constant<int, NC>{}) for NC == nc, 1 <= nc <=
-// kMaxCols: a kernel templated on its column count, picked at run time.
-template <int NC = 1, typename F>
+// Max: a kernel templated on its column count, picked at run time.
+template <int NC = 1, int Max = kMaxCols, typename F>
 void with_cols(int nc, F&& f) {
-  if constexpr (NC < kMaxCols) {
+  if constexpr (NC < Max) {
     if (nc != NC) {
-      with_cols<NC + 1>(nc, f);
+      with_cols<NC + 1, Max>(nc, f);
       return;
     }
   }
@@ -82,21 +82,6 @@ __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
 
 __host__ __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a > b ? a : b;
-}
-
-// dst row di = src row si, every column.  (Unrolling this loop over
-// kMaxCols made the merge kernel 1.8x slower on an H100: keep it rolled.)
-__device__ __forceinline__ void copy_row(const ColSet& src, int64_t si,
-                                         const ColSet& dst, int64_t di) {
-  for (int c = 0; c < src.n; ++c) {
-    if (src.w[c] == 8) {
-      reinterpret_cast<int64_t*>(dst.p[c])[di] =
-          reinterpret_cast<const int64_t*>(src.p[c])[si];
-    } else {
-      reinterpret_cast<int32_t*>(dst.p[c])[di] =
-          reinterpret_cast<const int32_t*>(src.p[c])[si];
-    }
-  }
 }
 
 // Inclusive prefix sum of one value per thread over a block of NT threads:
