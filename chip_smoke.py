@@ -36,6 +36,20 @@ non-zero and no result line is printed):
      round, the round widths, cold and warm times); at k=31, l=25 against
      a numpy count at k=31; and a small file counted on the card and on
      the CPU, whose table states must be identical word for word;
+  6. wide keys: the lane-mix kernel against its plain version at 8 and 16
+     lanes (2^24 positions, forward, inverse and the round trip, exact,
+     timed beside its bound), kernel 2 at 8, 9 and 17 key words on two
+     2^24-row runs (the wide counts' merge tree), kernel 3 at 3, 5, 8, 9
+     and 17 key words at the k=14 store-merge shape and at 8 and 17 at the
+     wide counts' (2^25 + 2^25 rows), kernel 1 with 18 columns on 2^24
+     rows (each exact, timed beside its bound);
+     then the bench FASTQ counted on the sort backend at k = 31, 63, 127
+     (the lane mix engaged by the auto rule) and 256 (the mix, 17
+     operands), each export against an independent numpy count of
+     multi-lane keys, with the launches of each count, and k=127 again
+     with hash_first=False (the same export; cold and warm walls of both,
+     and the device's busy time over one more warm count of each, from a
+     torch.profiler trace: the auto rule's A/B);
 then the kernels' JSON line (the contract's keys; extra times, floors and
 bounds only in the kernel_time lines), the nvidia-smi line, and as the
 last line
@@ -80,6 +94,12 @@ from tsxcount_tpu_torch.ops.merge_dedupe import (  # noqa: E402
     merge_dedupe_sorted_plain,
 )
 from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
+from tsxcount_tpu_torch.ops.lanes import lexsort_perm  # noqa: E402
+from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
+    LaneMixBijection,
+    lane_mix,
+    lane_mix_plain,
+)
 
 K = 14
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device-memory rate (data sheet)
@@ -103,7 +123,13 @@ KERNELS = {
                             "tsxcount_tpu/ops/pallas_apply.py:98"),
     "gather_sorted": ("tsxcount_tpu_torch/csrc/apply.cu",
                       "tsxcount_tpu/ops/pallas_apply.py:249"),
+    # no Pallas kernel: LaneMixBijection._apply_cols, which XLA fuses
+    "lane_mix": ("tsxcount_tpu_torch/csrc/lane_mix.cu",
+                 "tsxcount_tpu/ops/mix.py:255"),
 }
+WIDE_RUNS = ((31, None), (63, None), (127, None), (256, None),
+             (127, False))  # (k, hash_first) of phase 6's sort counts
+WIDE_L = 25                 # 2^25 store rows: every k's distinct fits
 DEV = torch.device("cuda")
 rng = np.random.default_rng(1234)
 
@@ -848,6 +874,319 @@ def card_vs_cpu() -> None:
         raise AssertionError("table state on the card differs from the CPU's")
 
 
+# --- phase 6 ----------------------------------------------------------------
+
+def check_lane_mix(results: dict) -> None:
+    """The lane-mix kernel against its plain version at 8 lanes (k=127,
+    the main path's shape) and 16 (k=256), 2^24 positions of full random
+    words (the top lane masked), forward and inverse, and the round trip;
+    timed forward at both (8 lanes in the kernels line) and inverse, each
+    beside its bound: every lane word read and written once, 8 B a lane a
+    position."""
+    n = 1 << 24
+    g = torch.Generator(device=DEV)
+    g.manual_seed(127)
+    worst, extra = 0, {}
+    for k in (127, 256):
+        spec = KmerSpec(k)
+        mix = LaneMixBijection(spec)
+        cols = [torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                              device=DEV, generator=g)
+                for _ in range(spec.lanes)]
+        cols[-1] &= spec.top_lane_mask
+        for inverse in (False, True):
+            err = max_err(lane_mix(cols, mix, inverse),
+                          lane_mix_plain(cols, mix, inverse))
+            phase("kernel", name="lane_mix", k=k, lanes=spec.lanes,
+                  rows=n, inverse=inverse, max_abs_err=err)
+            worst = max(worst, err)
+        err = max_err(lane_mix(lane_mix(cols, mix), mix, inverse=True), cols)
+        phase("kernel", name="lane_mix", k=k, case="round_trip", rows=n,
+              max_abs_err=err)
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: lane_mix(cols, mix))
+        plain_ms = cuda_ms(lambda: lane_mix_plain(cols, mix))
+        bound = bytes_ms(n * spec.lanes * 8)
+        if k == 127:
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        else:
+            extra.update(ms_16_lanes=ms, plain_ms_16_lanes=plain_ms,
+                         bound_ms_16_lanes=bound)
+        extra[f"ms_inverse_{spec.lanes}_lanes"] = cuda_ms(
+            lambda: lane_mix(cols, mix, inverse=True))
+        del cols
+    # no single PyTorch call computes the mix: library_ms is null
+    results["lane_mix"] = dict(max_abs_err=worst, library_ms=None,
+                               extra=extra, **timing)
+
+
+def wide_sorted(n: int, n_keys: int, g: torch.Generator,
+                hi: int = 1 << 30) -> list:
+    """n rows of n_keys int32 key words, ascending (unsigned): the first
+    word below hi, the middle ones 0 or 1 and the last random, so equal
+    prefixes are common and the last word decides."""
+    words = [torch.randint(0, hi, (n,), device=DEV, generator=g)]
+    words += [torch.randint(0, 2, (n,), device=DEV, generator=g)
+              for _ in range(n_keys - 2)]
+    words += [torch.randint(0, 1 << 32, (n,), device=DEV, generator=g)]
+    words = [(w - (w >= 1 << 31).long() * (1 << 32)).to(torch.int32)
+             for w in words]
+    perm = lexsort_perm(words)
+    return [w[perm] for w in words]
+
+
+def wide_dedupe_run(n: int, n_keys: int, n_invalid: int, inv_min: int,
+                    g: torch.Generator, unique: bool) -> tuple:
+    """A sorted (key words, int64 count) run of n rows on the card whose
+    last rows (at least n_invalid) are the invalid constant with count 0;
+    unique: no repeated valid key, as in a store."""
+    keys = wide_sorted(n - n_invalid, n_keys, g)
+    if unique:
+        first = torch.zeros(keys[0].numel(), dtype=torch.bool, device=DEV)
+        first[0] = True
+        for w in keys:
+            first[1:] |= w[1:] != w[:-1]
+        keys = [w[first] for w in keys]
+    n_valid = keys[0].numel()
+    keys = [torch.cat([w, w.new_full((n - n_valid,),
+                                     inv_min if c == 0 else 0)])
+            for c, w in enumerate(keys)]
+    cnt = torch.randint(1, 1 << 40, (n,), device=DEV, generator=g)
+    cnt[n_valid:] = 0
+    return tuple(keys) + (cnt,)
+
+
+def check_wide_kernels(results: dict) -> None:
+    """Kernels 1-3 at the widths that only wide keys use, each against its
+    plain version (exact) at the shapes the wide counts give it, and timed
+    beside its bytes bound; the times go to the kernels' kernel_time lines
+    as extras, named with their key words and rows."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(256)
+    # kernel 2: the merge tree of two 2^24-position batches (batch_words
+    # 2^20) at 8 (k=127), 9 and 17 (k=256) key words, int32 payload
+    r2 = results["merge_sorted"]
+    size = 1 << 24
+    for n_keys in (8, 9, 17):
+        a = tuple(wide_sorted(size, n_keys, g)) + (
+            torch.arange(size, dtype=torch.int32, device=DEV),)
+        b = tuple(wide_sorted(size, n_keys, g)) + (
+            torch.arange(size, 2 * size, dtype=torch.int32, device=DEV),)
+        err = max_err(merge_sorted(a, b, n_keys=n_keys),
+                      merge_sorted_plain(a, b, n_keys=n_keys))
+        phase("kernel", name="merge_sorted", case=f"n_keys{n_keys}_ties",
+              rows=2 * size, n_keys=n_keys, max_abs_err=err)
+        r2["max_abs_err"] = max(r2["max_abs_err"], err)
+        tag = f"n_keys{n_keys}_rows2^25"
+        r2["extra"][f"ms_{tag}"] = cuda_ms(
+            lambda: merge_sorted(a, b, n_keys=n_keys))
+        r2["extra"][f"bound_ms_{tag}"] = bytes_ms(
+            2 * (2 * size) * (4 * n_keys + 4))
+        del a, b
+        torch.cuda.empty_cache()
+    # kernel 3: the k=14 store merge (a 2^26-row store run, a quarter of it
+    # invalid, + a 2^25-row batch run) at 3, 5, 8, 9 and 17 key words, and
+    # the wide counts' store merge (l=25: a 2^25-row store + the 2^25 rows
+    # of two merged batches) at 8 (k=127) and 17 (k=256)
+    inv_min = 1 << 30
+    r3 = results["merge_dedupe_sorted"]
+    r3.setdefault("extra", {})
+    cases = [(n_keys, 26, "") for n_keys in (3, 5, 8, 9, 17)]
+    cases += [(n_keys, 25, "_rows2^25+2^25") for n_keys in (8, 17)]
+    for n_keys, log_m, suffix in cases:
+        m, n = 1 << log_m, 1 << 25
+        a = wide_dedupe_run(m, n_keys, m >> 2, inv_min, g, unique=True)
+        b = wide_dedupe_run(n, n_keys, n >> 5, inv_min, g, unique=False)
+        got, g_runs, g_valid = merge_dedupe_sorted(a, b, n_keys, inv_min)
+        want, w_runs, w_valid = merge_dedupe_sorted_plain(a, b, n_keys,
+                                                          inv_min)
+        runs = int(w_runs)
+        if (int(g_runs), int(g_valid)) != (runs, int(w_valid)):
+            raise AssertionError(f"merge_dedupe n_keys={n_keys}: runs/valid "
+                                 f"{int(g_runs)}/{int(g_valid)} != "
+                                 f"{runs}/{int(w_valid)}")
+        err = max_err(got, want, runs)
+        phase("kernel", name="merge_dedupe_sorted",
+              case="store_merge" + suffix, rows=m + n, n_keys=n_keys,
+              runs=runs, max_abs_err=err)
+        r3["max_abs_err"] = max(r3["max_abs_err"], err)
+        del got, want
+        tag = f"n_keys{n_keys}{suffix}"
+        r3["extra"][f"ms_{tag}"] = cuda_ms(
+            lambda: merge_dedupe_sorted(a, b, n_keys, inv_min))
+        r3["extra"][f"plain_ms_{tag}"] = cuda_ms(
+            lambda: merge_dedupe_sorted_plain(a, b, n_keys, inv_min))
+        # key words and count of every input row read, of every run written
+        r3["extra"][f"bound_ms_{tag}"] = bytes_ms(
+            (m + n + runs) * (4 * n_keys + 8))
+        del a, b
+        torch.cuda.empty_cache()
+    # kernel 1: the k=256 dedupe's 17 key operands and the position column
+    n = 1 << 24
+    flag = torch.rand(n, device=DEV, generator=g) < 0.5
+    cols = tuple(torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                               device=DEV, generator=g)
+                 for _ in range(17)) + (
+        torch.arange(n, dtype=torch.int32, device=DEV),)
+    rows = int(flag.sum())
+    err = max_err(compact_flagged(flag, cols),
+                  compact_flagged_plain(flag, cols), rows)
+    phase("kernel", name="compact_flagged", case="18_columns", rows=n,
+          flagged=rows, max_abs_err=err)
+    r1 = results["compact_flagged"]
+    r1["max_abs_err"] = max(r1["max_abs_err"], err)
+    r1["extra"]["ms_18_columns"] = cuda_ms(
+        lambda: compact_flagged(flag, cols))
+    r1["extra"]["bound_ms_18_columns"] = bytes_ms(n + 18 * 4 * (n + rows))
+
+
+def host_lanes(path: Path, k: int) -> np.ndarray:
+    """Every valid k-mer window of the FASTQ as uint32 lanes [n, lanes]
+    (base i at bits 2i of the 2k-bit key, lsb lane first; A=0 C=1 G=2
+    T=3), windows with a non-ACGT base skipped.  Numpy only."""
+    lut = np.full(256, 255, np.uint8)
+    for i, ch in enumerate(b"ACGT"):
+        lut[ch] = i
+        lut[ord(chr(ch).lower())] = i
+    sep = np.full(16, 255, np.uint8)  # no window crosses a read
+    parts = []
+    with open(path, "rb") as f:
+        for ln, line in enumerate(f):
+            if ln % 4 == 1:
+                parts += [lut[np.frombuffer(line.rstrip(b"\r\n"),
+                                            np.uint8)], sep]
+    codes = np.concatenate(parts)
+    n = codes.size
+    bad = np.concatenate([[0], np.cumsum(codes == 255, dtype=np.int64)])
+    pos = np.nonzero(bad[k:] - bad[: n - k + 1] == 0)[0]
+    # w16[i]: the 16 bases from i as one word
+    v = (codes & 3).astype(np.uint32)
+    w16 = np.zeros(n - 15, np.uint32)
+    for t in range(16):
+        w16 |= v[t : n - 15 + t] << np.uint32(2 * t)
+    spec = KmerSpec(k)
+    keys = np.stack([w16[pos + 16 * j] for j in range(spec.lanes)], axis=1)
+    keys[:, -1] &= np.uint32(spec.top_lane_mask)
+    return keys
+
+
+def fingerprint(keys: np.ndarray) -> np.ndarray:
+    """A 64-bit multiply-xorshift fold of each key's lanes: an order in
+    which to compare two key sets (equal fingerprints are then checked key
+    by key)."""
+    h = np.zeros(keys.shape[0], np.uint64)
+    for j in range(keys.shape[1]):
+        h = (h ^ keys[:, j].astype(np.uint64)) * np.uint64(
+            0x9E3779B97F4A7C15)
+        h ^= h >> np.uint64(29)
+    return h
+
+
+def host_count_lanes(path: Path, k: int) -> tuple:
+    """Independent numpy count of multi-lane keys: (distinct keys,
+    counts, fingerprints), in fingerprint order."""
+    keys = host_lanes(path, k)
+    fp = fingerprint(keys)
+    order = np.argsort(fp, kind="stable")
+    fp, keys = fp[order], keys[order]
+    new = np.ones(fp.size, bool)
+    new[1:] = fp[1:] != fp[:-1]
+    tie = ~new[1:]
+    if (keys[1:][tie] != keys[:-1][tie]).any():
+        raise AssertionError(f"k={k}: host fingerprints collide")
+    starts = np.nonzero(new)[0]
+    return keys[starts], np.diff(np.append(starts, fp.size)), fp[starts]
+
+
+def check_wide_export(counter: KmerCounter, want: tuple, tag: str) -> None:
+    """The counter's full export (keys mapped back on the card) equals the
+    numpy count, key by key and count by count."""
+    keys, counts, _ = counter.store.to_host(counter.state, counter.key_map)
+    fp = fingerprint(keys)
+    order = np.argsort(fp, kind="stable")
+    if not (fp.size == want[2].size
+            and np.array_equal(fp[order], want[2])
+            and np.array_equal(keys[order], want[0])
+            and np.array_equal(counts[order], want[1])):
+        raise AssertionError(f"{tag}: export differs from the numpy count")
+
+
+def device_busy_ms(fn) -> float:
+    """The union of the CUDA kernel and copy intervals of a torch.profiler
+    trace of fn() (ms): the card's busy time, whatever the host did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the trace holds no device activity")
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy + cur_e - cur_s) / 1e3
+
+
+def wide_end_to_end(path: Path) -> dict:
+    """The sort backend at k = 31, 63, 127 and 256 against numpy counts,
+    and k=127 without the lane mix; cold and warm walls of both k=127
+    counts.  Returns the launches summed over the cold counts (each read
+    from counts zeroed just before it)."""
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    wants = {}
+    for k, hash_first in WIDE_RUNS:
+        t0 = time.perf_counter()
+        if k not in wants:
+            wants[k] = host_count_lanes(path, k)
+        want = wants[k]
+        host_s = time.perf_counter() - t0
+        counter = KmerCounter(k=k, l=WIDE_L, batch_words=1 << 20,
+                              merge_every=4, hash_first=hash_first,
+                              device="cuda")
+        _build.reset_launch_counts()
+        cold = timed_count(counter, path)
+        run = _build.launch_counts()
+        tag = f"k={k},hash_first={counter.hash_first}"
+        total, distinct = counter.total_kmers, counter.distinct
+        phase("e2e_wide", run=tag, cold_s=round(cold, 4),
+              kmers_per_s=round(total / cold), total_kmers=total,
+              distinct=distinct, operands=counter.store.n_ops,
+              launches=run, host_count_s=round(host_s, 3))
+        if (total, distinct) != (int(want[1].sum()), len(want[0])):
+            raise AssertionError(f"{tag}: totals {total}/{distinct} != "
+                                 f"{int(want[1].sum())}/{len(want[0])}")
+        check_wide_export(counter, want, tag)
+        for name in SORT_KERNELS + (("lane_mix",) if counter.hash_first
+                                    else ()):
+            if run[name] <= 0:
+                raise AssertionError(f"{tag}: {name} not launched")
+        if not counter.hash_first and run["lane_mix"]:
+            raise AssertionError(f"{tag}: the lane mix ran")
+        for name in launches:
+            launches[name] += run[name]
+        if k == 127:
+            counter.reset()
+            warm = timed_count(counter, path)
+            check_wide_export(counter, want, tag + " warm")
+            counter.reset()
+            busy = device_busy_ms(lambda: counter.count_file(
+                path, use_native=True))
+            phase("e2e_wide", run=tag, warm_s=round(warm, 4),
+                  kmers_per_s_warm=round(total / warm),
+                  warm_device_busy_ms=round(busy, 3))
+        del counter
+    return launches
+
+
 def main() -> int:
     name, smi = environment()
     build()
@@ -856,6 +1195,8 @@ def main() -> int:
     check_merge(results)
     check_merge_dedupe(results)
     check_apply_kernels(results)
+    check_lane_mix(results)
+    check_wide_kernels(results)
     for kname, r in results.items():
         times = {k: v for k, v in r.items() if k not in ("max_abs_err",
                                                          "extra")}
@@ -871,7 +1212,8 @@ def main() -> int:
           host_count_s=round(time.perf_counter() - t0, 3),
           host_distinct=len(want_keys), host_total=int(want_counts.sum()))
     by_path = {"sort": end_to_end(path, want_keys, want_counts),
-               "table": table_end_to_end(path, want_keys, want_counts)}
+               "table": table_end_to_end(path, want_keys, want_counts),
+               "wide": wide_end_to_end(path)}
     # the contract's keys and the launches by path; the extras stay in the
     # kernel_time lines above
     print(json.dumps({"kernels": [

@@ -14,7 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from tsxcount_tpu_torch import KmerCounter  # noqa: E402
+from tsxcount_tpu_torch import KmerCounter, KmerSpec  # noqa: E402
 from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
     apply_sorted_unique,
     apply_sorted_unique_plain,
@@ -29,6 +29,11 @@ from tsxcount_tpu_torch.ops.merge import merge_sorted, merge_sorted_plain  # noq
 from tsxcount_tpu_torch.ops.merge_dedupe import (  # noqa: E402
     merge_dedupe_sorted,
     merge_dedupe_sorted_plain,
+)
+from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
+    LaneMixBijection,
+    lane_mix,
+    lane_mix_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -128,7 +133,24 @@ def test_merge_kernel(dev, m, n, n_keys, hi):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n_keys", [1, 3, 8])
+@pytest.mark.parametrize("m,n,n_keys,hi", [
+    (1000, 700, 9, 2**32), (40000, 30001, 9, 3), (30000, 40000, 17, 2),
+    (50001, 0, 17, 2**32), (0, 20000, 9, 2), (30000, 30000, 17, 1),
+])
+def test_merge_kernel_wide(dev, m, n, n_keys, hi):
+    """9 and 17 key words (the run-time width, 512-row tiles) with one
+    int32 payload column: 18 columns at most."""
+    rng = np.random.default_rng(m + n + n_keys)
+    a = tuple(_t(c, dev) for c in _sorted_run(rng, m, n_keys, hi).T) + (
+        torch.arange(m, dtype=torch.int32, device=dev),)
+    b = tuple(_t(c, dev) for c in _sorted_run(rng, n, n_keys, hi).T) + (
+        torch.arange(n, dtype=torch.int32, device=dev) + 100000,)
+    for g, w in zip(merge_sorted(a, b, n_keys),
+                    merge_sorted_plain(a, b, n_keys)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_keys", [1, 3, 8, 9, 17])
 def test_merge_kernel_keys_only(dev, n_keys):
     """No payload column: the keys alone, across many tiles."""
     rng = np.random.default_rng(40 + n_keys)
@@ -142,7 +164,8 @@ def test_merge_kernel_keys_only(dev, n_keys):
 @pytest.mark.parametrize("m,n,n_keys,hi,n_inv", [
     (40960, 20480, 1, 3000, 37), (60000, 30000, 2, 30, 0),
     (90000, 100, 1, 2, 5), (0, 10, 1, 5, 3), (3, 0, 3, 2, 0),
-    (20000, 20000, 8, 2, 11),
+    (20000, 20000, 8, 2, 11), (20000, 20000, 9, 2, 11),
+    (15000, 12000, 17, 2, 7), (30000, 0, 17, 2**30, 3),
 ])
 def test_merge_dedupe_kernel(dev, m, n, n_keys, hi, n_inv):
     rng = np.random.default_rng(m + n)
@@ -240,6 +263,7 @@ def _dedupe_run(rng, k, n_keys, hi, n_inv, dev):
     (3_000_000, 1_000_000, 1, 2**20),  # ~2000 tiles: the look-back spans many
     (400_000, 300_000, 1, 1),          # one key over every tile
     (500_000, 250_000, 8, 2),          # 8 key words, 1024-row tiles
+    (300_000, 200_000, 17, 2),         # 17 key words, 512-row tiles
 ])
 def test_merge_dedupe_repeats_bit_identical(dev, m, n, n_keys, hi):
     """Tiles finish in a different order on every call: five calls must
@@ -291,3 +315,179 @@ def test_table_counter_on_card_matches_cpu_state(dev, k, l):
     for f in out[0][0]:
         assert np.array_equal(out[0][0][f], out[1][0][f]), f
     assert out[0][1] == out[1][1]
+
+
+def test_compact_18_columns(dev):
+    """The k = 256 dedupe's 17 key operands and the position column."""
+    rng = np.random.default_rng(18)
+    total = 70001
+    flag = _t(rng.random(total) < 0.5, dev)
+    cols = tuple(_t(rng.integers(0, 2**32, total, dtype=np.uint32), dev)
+                 for _ in range(17)) + (
+        torch.arange(total, dtype=torch.int32, device=dev),)
+    n = int(flag.sum())
+    for g, w in zip(compact_flagged(flag, cols),
+                    compact_flagged_plain(flag, cols)):
+        assert torch.equal(g[:n], w[:n])
+
+
+@pytest.mark.parametrize("k", [7, 16, 31, 63, 113, 127, 128, 200, 256])
+def test_lane_mix_kernel(dev, k):
+    """Forward and inverse against the plain version, and the round
+    trip, on full 32-bit words (the top lane masked)."""
+    spec = KmerSpec(k)
+    mix = LaneMixBijection(spec)
+    rng = np.random.default_rng(k)
+    keys = rng.integers(0, 2**32, (spec.lanes, 100003), dtype=np.uint32)
+    keys[-1] &= np.uint32(spec.top_lane_mask)
+    cols = [_t(c, dev) for c in keys]
+    for inverse in (False, True):
+        for g, w in zip(lane_mix(cols, mix, inverse),
+                        lane_mix_plain(cols, mix, inverse)):
+            assert torch.equal(g, w)
+    back = lane_mix(lane_mix(cols, mix), mix, inverse=True)
+    assert all(map(torch.equal, back, cols))
+
+
+@pytest.mark.parametrize("k,hash_first", [(127, None), (256, None),
+                                          (63, True), (127, False)])
+def test_wide_counter_on_card_matches_cpu(dev, k, hash_first):
+    """Wide keys through the lane mix (or not): dumps and store states on
+    the card equal the CPU's word for word."""
+    rng = np.random.default_rng(k)
+    reads = ["".join(rng.choice(list("ACGT" * (k // 4) + "N"),
+                                size=rng.integers(k, k + 400)))
+             for _ in range(200)]
+    reads += reads[:50]
+    out = []
+    for d in (dev, "cpu"):
+        c = KmerCounter(k=k, l=16, batch_words=512, merge_every=3,
+                        hash_first=hash_first, device=d)
+        c.add_reads(reads)
+        c.finish()
+        out.append((c.to_dict(), c.distinct, c.total_kmers,
+                    c.store.state_to_reference(c.state)))
+    assert out[0][:3] == out[1][:3] and out[0][1] > 1000
+    for f, v in out[0][3].items():
+        np.testing.assert_array_equal(v, out[1][3][f], err_msg=f)
+
+
+def _out_of_order(rng, k, n_keys, how):
+    """k rows of n_keys key words below 2^31 - 1, sorted on the first word
+    (0..15) only; "inversion" adds a descending block of the first word,
+    "shuffled" breaks every order."""
+    keys = rng.integers(0, 2**31 - 1, (k, n_keys)).astype(np.int32)
+    keys[:, 0] = np.sort(rng.integers(0, 16, k))
+    if how == "inversion":
+        lo = k // 3
+        keys[lo : lo + 30000, 0] = keys[lo : lo + 30000, 0][::-1]
+    elif how == "shuffled":
+        rng.shuffle(keys)
+    return keys
+
+
+@pytest.mark.parametrize("n_keys,how", [(2, "prefix"), (3, "inversion"),
+                                        (1, "shuffled"), (8, "prefix"),
+                                        (9, "inversion"), (17, "shuffled")])
+def test_merges_of_runs_out_of_order_stay_in_bounds(dev, n_keys, how):
+    """Runs that break the sort order (as a batch sorted only on its
+    uniform prefix does after a real collision) give unspecified rows but
+    no fault.  Through the C interface, as tools/cuda_emu/emulate.py calls
+    it: each column sits between guards of -1 (no key word or row id of
+    the data), out is filled with -7 between guards; every row kernel 2
+    writes is a copy of an input row, every key kernel 3 writes an input
+    key, out's guards stay -7, and the context still works."""
+    from tsxcount_tpu_torch import _build
+
+    lib, P, W = _build.kernels(), _build.ptr_array, _build.width_array
+    guard = 1 << 16
+    rng = np.random.default_rng(n_keys)
+    m, n = 300001, 250000
+    ka, kb = (_out_of_order(rng, m, n_keys, how),
+              _out_of_order(rng, n, n_keys, how))
+    every = np.concatenate([ka, kb])
+    held = []  # the guarded buffers behind the views
+
+    def guarded(vals, fill):
+        buf = torch.full((vals.numel() + 2 * guard,), fill, dtype=vals.dtype,
+                         device=dev)
+        buf[guard:-guard] = vals
+        held.append(buf)
+        return buf[guard:-guard]
+
+    def cols(keys, extra):
+        return tuple(guarded(_t(c, dev), -1) for c in keys.T) + (
+            guarded(extra, -1),)
+
+    def fresh(like):
+        bufs = [torch.full((m + n + 2 * guard,), -7, dtype=c.dtype,
+                           device=dev) for c in like]
+        return bufs, tuple(b[guard:-guard] for b in bufs)
+
+    def guards_kept(bufs):
+        return all(bool((b[:guard] == -7).all() and (b[-guard:] == -7).all())
+                   for b in bufs)
+
+    # kernel 2, an int32 row id as payload
+    a = cols(ka, torch.arange(m, dtype=torch.int32, device=dev))
+    b = cols(kb, torch.arange(m, m + n, dtype=torch.int32, device=dev))
+    bufs, out = fresh(a)
+    scratch = torch.empty(lib.tsx_merge_scratch_elems(n_keys, m, n),
+                          dtype=torch.int64, device=dev)
+    assert lib.tsx_merge_sorted(P(a), P(b), P(out), W(a), len(a), n_keys, m,
+                                n, scratch.data_ptr(), _build.stream()) == 0
+    ids = out[n_keys].cpu().numpy()
+    assert guards_kept(bufs)
+    assert ((ids >= 0) & (ids < m + n)).all()
+    got = np.stack([c.cpu().numpy() for c in out[:n_keys]], axis=1)
+    assert (got == every[ids]).all()
+    # kernel 3, an int64 count
+    a = cols(ka, torch.ones(m, dtype=torch.int64, device=dev))
+    b = cols(kb, torch.ones(n, dtype=torch.int64, device=dev))
+    bufs, out = fresh(a)
+    stats = torch.full((2,), -7, dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.tsx_merge_dedupe_scratch_bytes(n_keys, m, n),
+                          dtype=torch.uint8, device=dev)
+    assert lib.tsx_merge_dedupe_sorted(
+        P(a), P(b), P(out), n_keys, m, n, 1 << 31, stats.data_ptr(),
+        scratch.data_ptr(), _build.stream()) == 0
+    r = int(stats[0])
+    assert 0 < r <= m + n and guards_kept(bufs)
+    got = np.stack([c[:r].cpu().numpy() for c in out[:n_keys]], axis=1)
+    rows = lambda x: np.ascontiguousarray(x).view(
+        np.dtype((np.void, 4 * n_keys))).ravel()
+    written = (got != -7).any(axis=1)
+    assert np.isin(rows(got[written]), rows(every)).all()
+    # the context survived: a sorted merge is still exact
+    s = tuple(_t(c, dev) for c in _sorted_run(rng, 5000, n_keys, 7).T)
+    for g, w in zip(merge_sorted(s, s, n_keys),
+                    merge_sorted_plain(s, s, n_keys)):
+        assert torch.equal(g, w)
+
+
+def test_real_prefix_collision_recounts_on_card(dev, tmp_path, monkeypatch):
+    """A prefix of one operand (2 key bits at k=113): the batches that reach
+    kernels 2 and 3 on the card are sorted on that prefix only, the flag
+    fires, and count_file recounts exactly on the same context."""
+    from collections import Counter
+
+    from tsxcount_tpu_torch import _build
+    from tsxcount_tpu_torch.ops import count as count_mod
+
+    k = 113
+    rng = np.random.default_rng(113)
+    reads = ["".join(rng.choice(list("ACGT"), size=rng.integers(k, 500)))
+             for _ in range(600)]
+    reads += reads[:100]
+    fastq = tmp_path / "r.fastq"
+    fastq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                             for i, r in enumerate(reads)))
+    monkeypatch.setattr(count_mod, "uniform_prefix_nk", lambda spec: 1)
+    c = KmerCounter(k=k, l=18, batch_words=2048, merge_every=3, device=dev)
+    _build.reset_launch_counts()
+    c.count_file(fastq, use_native=False)
+    assert c._mix_full_sort and c.batches_processed > c.merge_every
+    assert _build.launch_counts()["merge_dedupe_sorted"] >= 2
+    want = Counter(r[i : i + k] for r in reads
+                   for i in range(len(r) - k + 1))
+    assert c.to_dict() == dict(want)

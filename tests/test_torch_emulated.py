@@ -25,5 +25,6 @@ def test_emulated_kernels_match_plain_versions():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("compact_flagged", "merge_sorted", "merge_dedupe_sorted",
-                 "apply_sorted_unique", "gather_sorted"):
+                 "merge out of order", "apply_sorted_unique",
+                 "gather_sorted", "lane_mix"):
         assert f"{name}: ok" in proc.stdout

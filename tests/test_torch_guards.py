@@ -76,9 +76,8 @@ def test_store_and_table_default_to_the_card(make):
 
 @pytest.mark.parametrize("kw", [
     dict(canonical=True), dict(backend="table", canonical=True),
-    dict(lsm=True), dict(hash_first=True), dict(hash_first="mix"),
-    dict(hash_first="gf2"), dict(mix_prefix=True),
-    dict(collapse_homopolymers=True), dict(k=113), dict(k=127),
+    dict(lsm=True), dict(hash_first="gf2"), dict(mix_prefix=True),
+    dict(collapse_homopolymers=True),
     dict(lsm_growth=4), dict(progress_every=1),
     dict(backend="table", progress_every=5),
 ], ids=str)
@@ -86,6 +85,21 @@ def test_out_of_slice_options_raise(kw):
     args = dict(k=14, device="cpu") | kw
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KmerCounter(**args)
+
+
+@pytest.mark.parametrize("kw,n_ops", [
+    (dict(hash_first=True), 1), (dict(hash_first="mix"), 1),
+    (dict(k=113), 8), (dict(k=127), 8),
+], ids=str)
+def test_wide_keys_and_lane_mix_accepted(kw, n_ops):
+    """hash_first=True/"mix" at any k, and k >= 113 (the lane mix
+    engaged by itself) on the sort backend; other hash_first values
+    raise."""
+    c = KmerCounter(**(dict(k=14, l=8, device="cpu") | kw))
+    assert c.backend == "sort" and c.hash_first == "mix"
+    assert c.key_map is not None and c.store.n_ops == n_ops
+    with pytest.raises(ValueError):
+        KmerCounter(k=14, l=8, hash_first="other", device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -100,7 +114,8 @@ def test_table_backend_accepted(kw):
 
 def test_in_slice_options_accepted():
     for kw in (dict(lsm=None), dict(lsm=False), dict(hash_first=False),
-               dict(mix_prefix=False), dict(backend="SERIAL"), dict(k=112)):
+               dict(mix_prefix=False), dict(backend="SERIAL"), dict(k=112),
+               dict(k=256, hash_first=False)):
         c = KmerCounter(**(dict(k=14, l=8, device="cpu") | kw))
         assert c.backend == "sort" and c.lsm is False
 
@@ -196,7 +211,8 @@ def test_nvcc_command_targets_sm90a_in_ignored_build_dir():
     assert cmd[cmd.index("-o") + 1] == str(out)
     assert out.parent == _build.BUILD_DIR and _gitignored(out)
     srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
-    assert srcs == {"apply.cu", "compact.cu", "merge.cu", "merge_dedupe.cu"}
+    assert srcs == {"apply.cu", "compact.cu", "lane_mix.cu", "merge.cu",
+                    "merge_dedupe.cu"}
 
 
 def test_native_parser_built_from_source_into_ignored_dir():

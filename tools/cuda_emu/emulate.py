@@ -36,10 +36,15 @@ from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
 from tsxcount_tpu_torch.ops.compact import compact_flagged_plain  # noqa: E402
 from tsxcount_tpu_torch.ops.merge import merge_sorted_plain  # noqa: E402
 from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted_plain  # noqa: E402
+from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
+from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
+    LaneMixBijection,
+    lane_mix_plain,
+)
 
 HERE = Path(__file__).resolve().parent
 OUT = _build.BUILD_DIR / "emu"
-_LAUNCH = re.compile(r"([\w:]+(?:<\w+>)?)\s*<<<(.*?)>>>\s*\(", re.S)
+_LAUNCH = re.compile(r"([\w:]+(?:<[\w, ]+>)?)\s*<<<(.*?)>>>\s*\(", re.S)
 
 
 def _split_top(s: str) -> list[str]:
@@ -123,6 +128,10 @@ def main() -> int:
         cols = tuple(c[offset:] for c in cols)
         for dtype in (torch.bool, torch.int32):
             compact(torch.from_numpy(flag).to(dtype)[offset:], cols)
+    # 18 columns: the k = 256 dedupe's 17 key operands and a position
+    flag = torch.from_numpy(rng.random(9000) < 0.5)
+    compact(flag, tuple(t(rng.integers(0, 2**32, 9000, dtype=np.uint32))
+                        for _ in range(17)) + (torch.arange(9000).int(),))
     print("compact_flagged: ok")
 
     def run(n, n_keys, hi, extra):
@@ -131,11 +140,12 @@ def main() -> int:
         return tuple(t(np.ascontiguousarray(keys[:, j]))
                      for j in range(n_keys)) + extra(n)
 
-    # kernel 2: tiles of 1024 rows at every key width; the cases after the
-    # first six cross 16 tiles or more at 1, 3 and 8 key words, with an
-    # int32 and an int64 payload column: full 32-bit words (top bit set),
-    # lengths off the tile, one run empty, and every key equal (stability:
-    # A's rows first, each run in order)
+    # kernel 2: tiles of 1024 rows up to 8 key words, 512 beyond; the cases
+    # after the first six cross 16 tiles or more at 1, 3, 8, 9 and 17 key
+    # words, with an int32 and an int64 payload column: full 32-bit words
+    # (top bit set), lengths off the tile, one run empty, and every key
+    # equal (stability: A's rows first, each run in order); at 9 and 17,
+    # words drawn from 0..2 so that ties reach the last word
     for m, n, nk, hi in [(1024, 1024, 1, 2**32), (2000, 48, 1, 50),
                          (0, 2048, 2, 2**32), (3000, 1500, 2, 4),
                          (700, 2900, 3, 3), (5, 0, 1, 9),
@@ -143,12 +153,14 @@ def main() -> int:
                          (9000, 8501, 8, 2**32), (40000, 0, 1, 2**32),
                          (0, 33000, 3, 5), (0, 17000, 8, 3),
                          (21000, 16500, 1, 1), (18000, 19001, 3, 1),
-                         (9500, 9000, 8, 1)]:
+                         (9500, 9000, 8, 1), (5000, 4301, 9, 2**32),
+                         (4700, 4000, 9, 3), (4100, 4600, 17, 3),
+                         (0, 9000, 17, 2**32), (4000, 4500, 17, 1)]:
         pay = lambda k: (torch.arange(k, dtype=torch.int32),
-                         t(rng.integers(0, 2**40, k)))
+                         t(rng.integers(0, 2**40, k)))[: 18 - nk]  # 18 cols
         a, b = run(m, nk, hi, pay), run(n, nk, hi, pay)
         out = tuple(torch.full((m + n,), -7, dtype=c.dtype) for c in a)
-        scratch = torch.empty(lib.tsx_merge_scratch_elems(m, n),
+        scratch = torch.empty(lib.tsx_merge_scratch_elems(nk, m, n),
                               dtype=torch.int64)
         assert lib.tsx_merge_sorted(P(a), P(b), P(out), W(a), len(a), nk, m,
                                     n, scratch.data_ptr(), None) == 0
@@ -158,7 +170,7 @@ def main() -> int:
         # stable merge places them
         from_a = torch.cat([torch.ones(m, dtype=torch.int64),
                             torch.zeros(n, dtype=torch.int64)])
-        diags = torch.arange(scratch.numel()) * 1024
+        diags = torch.arange(scratch.numel()) * (1024 if nk <= 8 else 512)
         before = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(
             merge_sorted_plain(a[:nk] + (from_a[:m],), b[:nk] + (from_a[m:],),
                                nk)[nk], 0)])
@@ -168,12 +180,12 @@ def main() -> int:
         assert torch.equal(scratch, before[diags.clamp(max=m + n)]), (
             "merge_partition", m, n, nk)
     # no payload column: the keys alone, across many tiles
-    for nk in (1, 8):
+    for nk in (1, 8, 17):
         a = run(20000, nk, 2**32, lambda k: ())
         b = run(17001, nk, 2**32, lambda k: ())
         out = tuple(torch.full((37001,), -7, dtype=torch.int32)
                     for _ in range(nk))
-        scratch = torch.empty(lib.tsx_merge_scratch_elems(20000, 17001),
+        scratch = torch.empty(lib.tsx_merge_scratch_elems(nk, 20000, 17001),
                               dtype=torch.int64)
         assert lib.tsx_merge_sorted(P(a), P(b), P(out), W(a), nk, nk, 20000,
                                     17001, scratch.data_ptr(), None) == 0
@@ -181,9 +193,10 @@ def main() -> int:
             assert torch.equal(g, w), ("merge keys only", nk)
     print("merge_sorted: ok")
 
-    # kernel 3: tiles of 2048 rows (1024 beyond 3 key words); the last
-    # three cases cross 16 tiles or more, one of them with a single key
-    # over every tile
+    # kernel 3: tiles of 2048 rows (1024 beyond 3 key words, 512 beyond
+    # 8); the last five cases cross 16 tiles or more, one of them with a
+    # single key over every tile, two at 9 and 17 key words whose words
+    # are drawn from 0..1 (runs decided by the last word)
     inv_min = 1 << 30
     for m, n, nk, hi, n_inv in [(4096, 2048, 1, 3000, 37),
                                 (6000, 3000, 2, 30, 0), (9000, 100, 1, 2, 5),
@@ -191,7 +204,9 @@ def main() -> int:
                                 (0, 5000, 2, 40, 7), (2500, 0, 1, 90, 0),
                                 (40000, 30000, 1, 2**30, 100),
                                 (40000, 30000, 1, 1, 0),
-                                (12000, 8000, 8, 2, 11)]:
+                                (12000, 8000, 8, 2, 11),
+                                (6000, 4000, 9, 2, 13),
+                                (5000, 4000, 17, 2, 7)]:
         def with_invalid(k):
             cols = run(k, nk, hi, lambda q: (
                 t(rng.integers(2**31, 2**32 - 1, q)),))
@@ -217,6 +232,95 @@ def main() -> int:
         for g, w in zip(out, want):
             assert torch.equal(g[:r], w[:r]), ("merge_dedupe", m, n, nk)
     print("merge_dedupe_sorted: ok")
+
+    # kernels 2 and 3 on runs out of order (a batch sorted only on its
+    # uniform prefix, before the counter reads its collision flag and
+    # recounts): the rows are unspecified, but every read must stay inside
+    # the runs and every write inside out.  Each column sits between guards
+    # of -1, which no key word (< 2^31 - 1) or row id of the data holds;
+    # every output row must be a copy of an input row (kernel 2: its row id
+    # names the row) or an input key (kernel 3), and out's guards stay -7.
+    # A first word from 0..15 makes every prefix run span many tiles, so
+    # the merge-path split points are not monotone.
+    guard = 4096
+
+    def guarded(vals, fill):
+        buf = torch.full((vals.numel() + 2 * guard,), fill, dtype=vals.dtype)
+        buf[guard:-guard] = vals
+        return buf, buf[guard:-guard]
+
+    def disordered(k, nk, how):
+        keys = rng.integers(0, 2**31 - 1, (k, nk)).astype(np.int32)
+        keys[:, 0] = np.sort(rng.integers(0, 16, k))
+        if how == "inversion":  # a descending block of the first word too
+            keys[k // 3 : k // 3 + 3000, 0] = keys[k // 3 : k // 3 + 3000,
+                                                   0][::-1]
+        elif how == "shuffled":
+            rng.shuffle(keys)
+        return keys
+
+    def as_rows(keys):
+        return np.ascontiguousarray(keys).view(
+            np.dtype((np.void, keys.shape[1] * 4))).ravel()
+
+    for nk, how in [(2, "prefix"), (3, "inversion"), (1, "shuffled"),
+                    (8, "prefix"), (9, "inversion"), (17, "prefix"),
+                    (17, "shuffled")]:
+        m, n = 20000, 17001
+        ka, kb = disordered(m, nk, how), disordered(n, nk, how)
+        every = np.concatenate([ka, kb])
+        held = []  # the guarded buffers behind the views
+
+        def cols(keys, extra, fill):
+            views = []
+            for c in [torch.from_numpy(keys[:, j].copy())
+                      for j in range(nk)] + [extra]:
+                buf, v = guarded(c, fill)
+                held.append(buf)
+                views.append(v)
+            return tuple(views)
+
+        def fresh(like):
+            bufs = [torch.full((m + n + 2 * guard,), -7, dtype=c.dtype)
+                    for c in like]
+            return bufs, tuple(b[guard:-guard] for b in bufs)
+
+        def guards_kept(bufs):
+            return all(bool((b[:guard] == -7).all() and (b[-guard:] == -7)
+                            .all()) for b in bufs)
+
+        # kernel 2, an int32 row id as payload
+        a = cols(ka, torch.arange(m, dtype=torch.int32), -1)
+        b = cols(kb, torch.arange(m, m + n, dtype=torch.int32), -1)
+        bufs, out = fresh(a)
+        scratch = torch.empty(lib.tsx_merge_scratch_elems(nk, m, n),
+                              dtype=torch.int64)
+        assert lib.tsx_merge_sorted(P(a), P(b), P(out), W(a), len(a), nk, m,
+                                    n, scratch.data_ptr(), None) == 0
+        ids = out[nk].numpy()
+        assert guards_kept(bufs), ("merge out of order: write", nk, how)
+        assert ((ids >= 0) & (ids < m + n)).all(), ("merge out of order", nk,
+                                                    how)
+        got = np.stack([c.numpy() for c in out[:nk]], axis=1)
+        assert (got == every[ids]).all(), ("merge out of order", nk, how)
+        # kernel 3, an int64 count
+        a = cols(ka, torch.ones(m, dtype=torch.int64), -1)
+        b = cols(kb, torch.ones(n, dtype=torch.int64), -1)
+        bufs, out = fresh(a)
+        stats = torch.full((2,), -7, dtype=torch.int64)
+        scratch = torch.empty(lib.tsx_merge_dedupe_scratch_bytes(nk, m, n),
+                              dtype=torch.uint8)
+        assert lib.tsx_merge_dedupe_sorted(
+            P(a), P(b), P(out), nk, m, n, 1 << 31, stats.data_ptr(),
+            scratch.data_ptr(), None) == 0
+        r = int(stats[0])
+        assert 0 < r <= m + n and guards_kept(bufs), (
+            "merge_dedupe out of order", nk, how, r)
+        got = np.stack([c[:r].numpy() for c in out[:nk]], axis=1)
+        written = (got != -7).any(axis=1)
+        assert np.isin(as_rows(got[written]), as_rows(every)).all(), (
+            "merge_dedupe out of order", nk, how)
+    print("merge out of order: ok")
 
     # kernels 4 and 5: sorted doubled destinations, live (odd) addresses
     # distinct, dead (even) ones between them and a 1 << 30 tail
@@ -272,6 +376,25 @@ def main() -> int:
         "runs")
     print("gather_sorted: ok")
     print("apply_sorted_unique: ok")
+
+    # the lane mix at every lane count the sort backend meets, forward and
+    # inverse, on full 32-bit words (the top lane masked to the key)
+    for k in (7, 16, 31, 32, 63, 113, 127, 128, 200, 256):
+        spec = KmerSpec(k)
+        mix = LaneMixBijection(spec)
+        n = 3001
+        keys = rng.integers(0, 2**32, (spec.lanes, n), dtype=np.uint32)
+        keys[-1] &= np.uint32(spec.top_lane_mask)
+        cols = [t(np.ascontiguousarray(c)) for c in keys]
+        for inverse in (False, True):
+            out = [torch.full_like(c, -7) for c in cols]
+            assert lib.tsx_lane_mix(
+                P(cols), P(out), spec.lanes, n, int(inverse),
+                spec.top_lane_mask, mix._odd1, mix._odd2, mix._inv1,
+                mix._inv2, mix._shift, mix._unshift_steps, None) == 0
+            want = lane_mix_plain(cols, mix, inverse)
+            assert all(map(torch.equal, out, want)), ("lane_mix", k, inverse)
+    print("lane_mix: ok")
     return 0
 
 

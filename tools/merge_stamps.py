@@ -111,7 +111,7 @@ def main() -> int:
     buf = np.zeros((MAX_TILES, 5), np.int64)
     if lib.tsx_merge_stamps(buf.ctypes.data) != 0:
         raise RuntimeError("reading the stamps failed")
-    tiles = lib.tsx_merge_scratch_elems(ROWS, ROWS) - 1
+    tiles = lib.tsx_merge_scratch_elems(1, ROWS, ROWS) - 1
     st = buf[:tiles]
     phase = np.diff(st[:, :4], axis=1)
     sms = np.unique(st[:, 4]).size

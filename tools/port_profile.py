@@ -8,6 +8,13 @@ Traces with torch.profiler (CPU + CUDA activities):
   2. one warm end-to-end count of the seed-42 bench FASTQ at k=14 with the
      CLI's defaults (the first, cold count is untraced), by the sort
      backend and by the table backend (l=26).
+    python3 tools/port_profile.py --wide [--out DIR]
+
+instead traces warm counts of the same file at k=127 on the sort backend,
+with the lane mix (hash_first="mix", the auto rule from 8 lanes) and
+without it (hash_first=False), in the order mix, full, full, mix (each
+counter's cold count untraced), so the auto rule's A/B reads off one call.
+
 Prints, per part, the device time by kernel name (key_averages, sorted by
 device time), the part's wall time and the device's busy share over it;
 writes the tables and a Chrome trace of the end-to-end part to DIR
@@ -198,8 +205,12 @@ def time_kernels(tree: Path) -> dict:
             res["k2_partition_ms"] = None
             if "tsx_merge_partition" in _build._SIGNATURES:
                 lib = _build.kernels()
+                # the key count leads the arguments from the wide-key
+                # build on
+                keyed = len(_build._SIGNATURES["tsx_merge_scratch_elems"][1])
                 scratch = torch.empty(
-                    lib.tsx_merge_scratch_elems(rows, rows),
+                    lib.tsx_merge_scratch_elems(
+                        *((1,) if keyed == 3 else ()), rows, rows),
                     dtype=torch.int64, device=dev)
                 pa, pb = _build.ptr_array(a[:1]), _build.ptr_array(b[:1])
                 res["k2_partition_ms"] = median_ms(
@@ -295,11 +306,43 @@ def ab(other: Path) -> int:
     return 0
 
 
+def bench_fastq(_build, bench) -> Path:
+    path = _build.BUILD_DIR / f"bench.{bench.N_READS}.fastq"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    bench.ensure_synth_fastq(path, bench.N_READS, seed=42)
+    return path
+
+
+def wide_counts(out: Path) -> int:
+    """Warm k=127 sort counts with and without the lane mix, in turns."""
+    import bench
+    from tsxcount_tpu_torch import KmerCounter, _build
+
+    _build.kernels()
+    path = bench_fastq(_build, bench)
+    counters = {}
+    for hash_first in ("mix", False):
+        c = KmerCounter(k=127, l=25, batch_words=1 << 20, merge_every=4,
+                        hash_first=hash_first, device="cuda")
+        c.count_file(path, use_native=True)  # cold, untraced
+        counters[hash_first] = c
+    for i, hash_first in enumerate(("mix", False, False, "mix")):
+        c = counters[hash_first]
+        c.reset()
+        name = f"e2e_warm_k127_{hash_first or 'full'}_{i}"
+        traced(name, lambda: c.count_file(path, use_native=True), out,
+               trace=i == 0)
+        print(f"{name}: distinct {c.distinct} total {c.total_kmers}")
+    print("device:", torch.cuda.get_device_name(0))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--ab", type=Path, default=None)
     ap.add_argument("--time-kernels", type=Path, default=None)
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -317,6 +360,8 @@ def main() -> int:
 
     out = Path(args.out or _build.BUILD_DIR / "profile")
     out.mkdir(parents=True, exist_ok=True)
+    if args.wide:
+        return wide_counts(out)
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     _build.kernels()
@@ -348,9 +393,7 @@ def main() -> int:
                                        1 << 28), out)
     del flag, op, pos, a, b, store, batch, s_cnt, b_cnt
 
-    path = _build.BUILD_DIR / f"bench.{bench.N_READS}.fastq"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    bench.ensure_synth_fastq(path, bench.N_READS, seed=42)
+    path = bench_fastq(_build, bench)
     counter = KmerCounter(k=14, l=26, batch_words=1 << 20, merge_every=4,
                           device="cuda")
     counter.count_file(path, use_native=True)  # cold, untraced

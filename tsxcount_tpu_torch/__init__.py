@@ -3,9 +3,9 @@ CUDA kernels for one NVIDIA Hopper GPU (H100).
 
 The port of `tsxcount_tpu` (JAX/Pallas on a TPU), which stays the reference
 it is tested against.  This package imports neither JAX nor `tsxcount_tpu`.
-It covers the sort backend through the flat count store for k <= 112 and
-the quotient-table backend for k <= 127; see ROADMAP.md for what is still
-to come.
+It covers the sort backend through the flat count store for k <= 256
+(from k = 113 through the lane-mix bijection) and the quotient-table
+backend for k <= 127; see ROADMAP.md for what is still to come.
 
 Public surface:
     KmerSpec                   — k-mer geometry (lanes, masks)

@@ -34,9 +34,10 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+MAX_COLS = 18  # kMaxCols of csrc/common.cuh: columns of one kernel call
 
 LAUNCHES = {"compact_flagged": 0, "merge_sorted": 0, "merge_dedupe_sorted": 0,
-            "apply_sorted_unique": 0, "gather_sorted": 0}
+            "apply_sorted_unique": 0, "gather_sorted": 0, "lane_mix": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -44,20 +45,23 @@ _lib = None
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
+_U32 = ctypes.c_uint32
 # entry point -> (restype, argtypes); see the extern "C" blocks in csrc/
 _SIGNATURES = {
     "tsx_compact_scratch_bytes": (_I64, [_I64]),
     "tsx_compact_flagged": (_INT, [_P, _INT, _P, _P, _P, _INT, _I64, _P,
                                    _P]),
-    "tsx_merge_scratch_elems": (_I64, [_I64, _I64]),
+    "tsx_merge_scratch_elems": (_I64, [_INT, _I64, _I64]),
     "tsx_merge_sorted": (_INT, [_P, _P, _P, _P, _INT, _INT, _I64, _I64,
                                 _P, _P]),
     "tsx_merge_partition": (_INT, [_P, _P, _INT, _I64, _I64, _P, _P]),
     "tsx_merge_dedupe_scratch_bytes": (_I64, [_INT, _I64, _I64]),
     "tsx_merge_dedupe_sorted": (_INT, [_P, _P, _P, _INT, _I64, _I64,
-                                       ctypes.c_uint32, _P, _P, _P]),
+                                       _U32, _P, _P, _P]),
     "tsx_gather_sorted": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
     "tsx_apply_sorted_unique": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
+    "tsx_lane_mix": (_INT, [_P, _P, _INT, _I64, _INT, _U32, _U32, _U32, _U32,
+                            _U32, _INT, _INT, _P]),
     "tsx_error_string": (ctypes.c_char_p, [_INT]),
 }
 

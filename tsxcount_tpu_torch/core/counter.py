@@ -5,7 +5,11 @@ fixed-shape batch through the device: window extraction and an exact batch
 histogram (sort + kernel 1), then, by backend (the reference's --mode
 strings map onto the two):
   * "sort": every `merge_every` batches one store merge (kernel 2's merge
-    tree, then kernel 3 into the sorted store, core/store.py);
+    tree, then kernel 3 into the sorted store, core/store.py).  From 8
+    lanes (k >= 113), or with hash_first, each batch's keys first go
+    through the lane-mix bijection (ops/mix.py, one kernel): the store
+    holds the images, the dedupe sorts only their >= 64-bit prefix, and a
+    detected prefix collision makes count_file recount with the full sort;
   * "table": an insert into the quotient table (core/table.py) in reprobe
     rounds of shrinking width (kernels 5, 4 and 1 per round), the widths
     chosen on the host from the batch's distinct count and each round's
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 import time
 from pathlib import Path
 from typing import Iterable, Iterator
@@ -39,6 +44,7 @@ from tsxcount_tpu_torch.io.fastx import read_fastx
 from tsxcount_tpu_torch.io.packer import PackedBatch, ReadPacker, add_stats
 from tsxcount_tpu_torch.ops.count import UniqueCounts, count_unique
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
+from tsxcount_tpu_torch.ops.mix import LaneMixBijection
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.utils.goldenfile import read_golden
 from tsxcount_tpu_torch.utils.sequence import kmers_to_strings, strings_to_kmers
@@ -53,8 +59,7 @@ MODE_TO_BACKEND = {
     "TSX": "table",
     "EXPERIMENTAL": "table",
 }
-MAX_LANES = 7  # sort backend: from 8 lanes (k >= 113) the JAX package
-               # engages a lane mix
+_MIX_AUTO_MIN_LANES = 8  # hash_first=None: the lane mix from 8 lanes up
 _TABLE_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
 
 _QUERY_BATCH = 1 << 16
@@ -100,6 +105,18 @@ class TableFull(RuntimeError):
     found no slot within max_reprobes."""
 
 
+class PrefixCollision(RuntimeError):
+    """Two DISTINCT keys collided in the 64-bit uniform prefix that the
+    dedupe sorts (probability ~P^2/2^65 a batch), so one ingested batch's
+    histogram may be wrong.
+
+    Detection is exact (ops/count.py sort_uniform_prefix).  count_file()
+    handles it by recounting the file with the full sort; it reaches the
+    caller only from add_reads() + finish(), where the input cannot be
+    replayed: rerun with hash_first=False, or feed the input via
+    count_file."""
+
+
 class KmerCounter:
     def __init__(
         self,
@@ -136,8 +153,6 @@ class KmerCounter:
             raise _not_ported("lsm=True", "Queue 1 item 8")
         if lsm_growth != 8:
             raise _not_ported(f"lsm_growth={lsm_growth}", "Queue 1 item 8")
-        if hash_first:
-            raise _not_ported("hash_first", "Queue 1 item 7")
         if mix_prefix:
             raise _not_ported("mix_prefix", "the 'Do not port' list")
         if collapse_homopolymers:
@@ -146,9 +161,27 @@ class KmerCounter:
             raise _not_ported(f"progress_every={progress_every}",
                               "Queue 1 item 13")
         self.spec = KmerSpec(k)
-        if backend == "sort" and self.spec.lanes > MAX_LANES:
-            raise _not_ported(f"k={k} ({self.spec.lanes} lanes, lane mix)",
-                              "Queue 1 item 7")
+        # hash_first: False or "mix" (True aliases it): the store holds the
+        # lane-mix images and the dedupe sorts their uniform prefix; None
+        # engages it on the sort backend from 8 lanes up, as the JAX
+        # package does, so that both hold the same store states
+        if hash_first is None:
+            hash_first = ("mix" if backend == "sort"
+                          and self.spec.lanes >= _MIX_AUTO_MIN_LANES
+                          else False)
+        if hash_first is True:
+            hash_first = "mix"
+        if hash_first == "gf2":
+            raise _not_ported("hash_first='gf2'", "the 'Do not port' list")
+        if hash_first not in (False, "mix"):
+            raise ValueError("hash_first must be False, True/'mix', or "
+                             "'gf2'")
+        self.hash_first = hash_first if backend == "sort" else False
+        self.key_map = (LaneMixBijection(self.spec)
+                        if self.hash_first == "mix" else None)
+        # set after a detected prefix collision: count_file recounts with
+        # the full sort
+        self._mix_full_sort = False
         self.device = resolve_device(device)
         # read_len_hint sizes the interval-coded validity budget (see
         # BatchSpec.max_intervals); 0 = auto-detect from the first reads
@@ -181,6 +214,8 @@ class KmerCounter:
         self.state = (self.store if self.backend == "sort"
                       else self.table).init_state()
         self._pending: list[UniqueCounts] = []
+        # the batches' prefix-collision flags, ORed on the device
+        self._collided: torch.Tensor | None = None
         self.packer = ReadPacker(self.batch, n_policy=self.n_policy,
                                  seed=self.seed)
         self.batches_processed = 0
@@ -231,7 +266,14 @@ class KmerCounter:
         batch = self.batch
         cols = extract_kmer_cols(buf[: batch.total_words], batch)
         valid = intervals_to_valid(buf[batch.total_words :], batch)
-        return count_unique(cols, valid, self.spec)
+        if self.key_map is None:
+            return count_unique(cols, valid, self.spec)
+        uc = count_unique(self.key_map.apply_cols(cols), valid, self.spec,
+                          uniform_prefix=not self._mix_full_sort)
+        if uc.collided is not None:  # kept on the device, read once a file
+            self._collided = (uc.collided if self._collided is None
+                              else self._collided | uc.collided)
+        return uc
 
     def _flush_pending(self) -> None:
         """Fold the pending batch histograms into the store."""
@@ -319,11 +361,19 @@ class KmerCounter:
                     f"{self.table.max_reprobes} reprobes; increase l or "
                     f"max_reprobes"
                 )
-        elif bool(self.state.overflowed):
+            return
+        flags = [self.state.overflowed]
+        if self._collided is not None:
+            flags.append(self._collided)
+        self._collided = None
+        flags = torch.stack(flags).cpu().tolist()
+        if flags[0]:
             raise TableFull(
                 f"distinct kmers exceeded capacity 2^{self.l}; rerun with "
                 f"a larger l"
             )
+        if any(flags[1:]):
+            raise PrefixCollision(PrefixCollision.__doc__)
 
     def count_file(self, path: str | Path,
                    use_native: bool | None = None) -> None:
@@ -331,7 +381,26 @@ class KmerCounter:
 
         use_native: True = the C++ parser (raises if it cannot be built),
         False = the Python packer, None = the C++ parser if it builds.
+
+        A detected dedupe-prefix collision (lane mix only) is handled here
+        by recounting the file with the full sort, when this counter held
+        no earlier data; otherwise it raises PrefixCollision.
         """
+        fresh = (self.batches_processed == 0
+                 and self.packer.stats.reads == 0)
+        try:
+            self._count_file(path, use_native)
+        except PrefixCollision:
+            if not fresh:
+                raise
+            print("tsxcount: dedupe-prefix collision detected; recounting "
+                  "with the full-comparator sort (exact, ~2x this file's "
+                  "cost)", file=sys.stderr)
+            self._mix_full_sort = True
+            self.reset()
+            self._count_file(path, use_native)
+
+    def _count_file(self, path: str | Path, use_native: bool | None) -> None:
         from tsxcount_tpu_torch.io.native import (
             NativeFileReader,
             native_available,
@@ -380,7 +449,10 @@ class KmerCounter:
         if not kmers:
             return []
         self._flush_pending()
-        keys = strings_to_kmers(kmers, self.spec).view(np.int32)
+        keys = strings_to_kmers(kmers, self.spec)
+        if self.key_map is not None:  # the store holds the images
+            keys = self.key_map.apply_host(keys)
+        keys = keys.view(np.int32)
         out: list[int] = []
         for off in range(0, len(kmers), _QUERY_BATCH):
             q = torch.from_numpy(keys[off : off + _QUERY_BATCH]).to(
@@ -400,7 +472,7 @@ class KmerCounter:
         (sort backend) or in slot order (table backend)."""
         self._flush_pending()
         if self.backend == "sort":
-            keys, counts, _ = self.store.to_host(self.state)
+            keys, counts, _ = self.store.to_host(self.state, self.key_map)
         else:
             keys, counts, _ = self.table.to_host(self.state)
         for kmer_str, cnt in zip(kmers_to_strings(keys, self.spec),

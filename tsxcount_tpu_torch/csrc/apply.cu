@@ -14,7 +14,7 @@
 // Contract (ops/apply.py).  dst2 int32[n]: element e is live iff dst2[e] is
 // odd, and then addresses slot element dst2[e] >> 1 of each column of S
 // uint32 words.  Live addresses outside [0, S) are ignored (memory safety;
-// the callers never produce them).  C <= kMaxCols columns a call.
+// the callers never produce them).  C <= kMaxApplyCols columns a call.
 //   gather_sorted:        outs[c][e] = live ? cols[c][dst2[e] >> 1] : 0;
 //                         live addresses may repeat (every row of a run
 //                         reads its slot).
@@ -47,17 +47,18 @@ namespace tsx {
 namespace {
 
 constexpr int kApplyThreads = 256;
+constexpr int kMaxApplyCols = 16;  // k = 127 needs 12
 
 // The columns of one apply launch, passed by value.
 struct ApplyCols {
-  uint32_t* col[kMaxCols];
-  const uint32_t* val[kMaxCols];
+  uint32_t* col[kMaxApplyCols];
+  const uint32_t* val[kMaxApplyCols];
 };
 
 // The columns of one gather launch, passed by value.
 struct GatherCols {
-  const uint32_t* col[kMaxCols];
-  uint32_t* out[kMaxCols];
+  const uint32_t* col[kMaxApplyCols];
+  uint32_t* out[kMaxApplyCols];
 };
 
 // One element per thread, like kernel 4.  Two consecutive elements a
@@ -113,7 +114,7 @@ extern "C" int tsx_gather_sorted(const void* const* cols, void* const* outs,
                                  int n_cols, int64_t s, const void* dst2,
                                  int64_t n, void* stream) {
   using namespace tsx;
-  if (n_cols < 1 || n_cols > kMaxCols || s < 0 || n < 0) {
+  if (n_cols < 1 || n_cols > kMaxApplyCols || s < 0 || n < 0) {
     return cudaErrorInvalidValue;
   }
   if (n > 0) {
@@ -126,7 +127,7 @@ extern "C" int tsx_gather_sorted(const void* const* cols, void* const* outs,
         static_cast<unsigned>(ceil_div(n, kApplyThreads));
     const int32_t* d = static_cast<const int32_t*>(dst2);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    with_cols(n_cols, [&](auto nc) {
+    with_cols<1, kMaxApplyCols>(n_cols, [&](auto nc) {
       constexpr int NC = decltype(nc)::value;
       gather_sorted_kernel<NC><<<blocks, kApplyThreads, 0, st>>>(c, s, d, n);
     });
@@ -139,7 +140,7 @@ extern "C" int tsx_apply_sorted_unique(void* const* cols, void* const* vals,
                                        const void* dst2, int64_t n,
                                        void* stream) {
   using namespace tsx;
-  if (n_cols < 1 || n_cols > kMaxCols || s < 0 || n < 0) {
+  if (n_cols < 1 || n_cols > kMaxApplyCols || s < 0 || n < 0) {
     return cudaErrorInvalidValue;
   }
   if (n > 0) {
@@ -152,7 +153,7 @@ extern "C" int tsx_apply_sorted_unique(void* const* cols, void* const* vals,
         static_cast<unsigned>(ceil_div(n, kApplyThreads));
     const int32_t* d = static_cast<const int32_t*>(dst2);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    with_cols(n_cols, [&](auto nc) {
+    with_cols<1, kMaxApplyCols>(n_cols, [&](auto nc) {
       constexpr int NC = decltype(nc)::value;
       apply_sorted_unique_kernel<NC><<<blocks, kApplyThreads, 0, st>>>(c, s,
                                                                       d, n);

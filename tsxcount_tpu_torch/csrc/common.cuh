@@ -10,7 +10,9 @@
 
 namespace tsx {
 
-constexpr int kMaxCols = 16;
+// Columns of one call: the batch dedupe compacts up to 17 key operands and
+// a position (k = 256), the store merge 17 key words and a count.
+constexpr int kMaxCols = 18;
 
 // Calls f(std::integral_constant<int, NC>{}) for NC == nc, 1 <= nc <=
 // Max: a kernel templated on its column count, picked at run time.

@@ -30,10 +30,17 @@
 // 32-ary search, 8 times the scattered reads, took 2.5 times as long
 // (PERF.md).
 //
-// Contract (ops/merge.py): a and b hold n_cols columns (int32 or int64, the
-// same width for a column in both runs) of m and n rows; the first n_keys
-// (1..8) are uint32 key words, most significant first, each run ascending
-// under the unsigned lexicographic order.  out gets the m + n merged rows.
+// Key words: 1 to 8 (k <= 112) each compiled as they are, 9 to 17 by one
+// instantiation that reads the width at run time (merge.cuh).  The wide
+// tiles are 512 rows (2 a thread), so that 17 staged key words stay under
+// the 48 KB of static shared memory (39 KB).
+//
+// Contract (ops/merge.py): a and b hold n_cols (at most 18) columns (int32
+// or int64, the same width for a column in both runs) of m and n rows; the
+// first n_keys (1..17) are uint32 key words, most significant first, each
+// run ascending under the unsigned lexicographic order.  out gets the m + n
+// merged rows.  Runs out of that order give unspecified rows, but nothing
+// is read or written outside a, b and out (merge.cuh, tile_a_rows).
 
 #include "merge.cuh"
 
@@ -41,28 +48,37 @@ namespace tsx {
 namespace {
 
 constexpr int kMergeThreads = 256;
-constexpr int kMergeItems = 4;                           // rows a thread merges
-constexpr int kMergeTile = kMergeThreads * kMergeItems;  // 1024 rows a block
+
+// Rows a thread merges at NK key words: 1024-row tiles up to 8 key words,
+// 512 beyond.
+__host__ __device__ constexpr int merge_items(int nk) {
+  return nk <= kMaxFixedKeys ? 4 : 2;
+}
+
+__host__ __device__ constexpr int merge_tile(int nk) {
+  return kMergeThreads * merge_items(nk);
+}
 
 // The tile's staged key columns and one payload column (at most 42 KB, at
-// 8 key words).
+// 8 key words; 39 KB at 17).
 template <int NK>
 struct MergeStage {
-  uint32_t keys[NK][kMergeTile];
+  static constexpr int T = merge_tile(NK);
+  uint32_t keys[NK][T];
   union {
-    uint32_t w32[kMergeTile];
-    uint64_t w64[kMergeTile];
+    uint32_t w32[T];
+    uint64_t w64[T];
   } pay;
 };
 
 // out row d0 + q = buf[from[r]] for q = tid + r * kMergeThreads < len.
-template <typename V>
-__device__ __forceinline__ void store_permuted(
-    const V* buf, char* po, int64_t d0, int len,
-    const int (&from)[kMergeItems]) {
+template <typename V, int I>
+__device__ __forceinline__ void store_permuted(const V* buf, char* po,
+                                               int64_t d0, int len,
+                                               const int (&from)[I]) {
   V* o = reinterpret_cast<V*>(po) + d0;
 #pragma unroll
-  for (int r = 0; r < kMergeItems; ++r) {
+  for (int r = 0; r < I; ++r) {
     const int q = threadIdx.x + r * kMergeThreads;
     if (q < len) o[q] = buf[from[r]];
   }
@@ -71,20 +87,20 @@ __device__ __forceinline__ void store_permuted(
 // One payload column through the shared buffer: its A slice then its B
 // slice loaded (coalesced) to buf[0, len), then stored by source.  Every
 // thread calls it.
-template <typename V>
+template <typename V, int I>
 __device__ __forceinline__ void move_column(
     const char* pa, const char* pb, char* po, V* buf, int64_t a0, int64_t b0,
-    int64_t d0, int la, int len, const int (&from)[kMergeItems]) {
+    int64_t d0, int la, int len, const int (&from)[I]) {
   const V* av = reinterpret_cast<const V*>(pa);
   const V* bv = reinterpret_cast<const V*>(pb);
-  V v[kMergeItems];
+  V v[I];
 #pragma unroll
-  for (int r = 0; r < kMergeItems; ++r) {
+  for (int r = 0; r < I; ++r) {
     const int i = threadIdx.x + r * kMergeThreads;
     if (i < len) v[r] = i < la ? av[a0 + i] : bv[b0 + (i - la)];
   }
 #pragma unroll
-  for (int r = 0; r < kMergeItems; ++r) {
+  for (int r = 0; r < I; ++r) {
     const int i = threadIdx.x + r * kMergeThreads;
     if (i < len) buf[i] = v[r];
   }
@@ -95,9 +111,9 @@ __device__ __forceinline__ void move_column(
 template <int NK>
 __global__ void __launch_bounds__(kMergeThreads)
     merge_tile_kernel(ColSet a, ColSet b, ColSet out, int64_t m, int64_t n,
-                      const int64_t* __restrict__ a_starts) {
-  constexpr int I = kMergeItems;
-  constexpr int T = kMergeTile;
+                      int n_keys, const int64_t* __restrict__ a_starts) {
+  constexpr int I = merge_items(NK);
+  constexpr int T = merge_tile(NK);
   __shared__ MergeStage<NK> st;
   __shared__ Vec<uint16_t, I> src[kMergeThreads];  // thread x: rows x*I..
   const int tid = threadIdx.x;
@@ -105,13 +121,14 @@ __global__ void __launch_bounds__(kMergeThreads)
   const int64_t a0 = a_starts[blockIdx.x];
   const int64_t b0 = d0 - a0;
   const int len = static_cast<int>(min64(T, m + n - d0));
-  const int la = static_cast<int>(a_starts[blockIdx.x + 1] - a0);
+  const int la = tile_a_rows(a0, a_starts[blockIdx.x + 1], len);
   const int lb = len - la;
+  const int nk = key_words<NK>(n_keys);
 
   // the key columns and the first payload column, every load of the
   // thread's rows in flight before the first store to shared memory
-  const bool has_pay = a.n > NK;
-  const bool wide = has_pay && a.w[NK] == 8;
+  const bool has_pay = a.n > nk;
+  const bool wide = has_pay && a.w[nk] == 8;
   {
     uint32_t v[I][NK];
     uint64_t pv[I];
@@ -123,10 +140,12 @@ __global__ void __launch_bounds__(kMergeThreads)
         const int64_t row = in_a ? a0 + i : b0 + (i - la);
 #pragma unroll
         for (int c = 0; c < NK; ++c) {
-          v[r][c] =
-              reinterpret_cast<const uint32_t*>(in_a ? a.p[c] : b.p[c])[row];
+          if (c < nk) {
+            v[r][c] = reinterpret_cast<const uint32_t*>(in_a ? a.p[c]
+                                                             : b.p[c])[row];
+          }
         }
-        const char* pc = in_a ? a.p[NK] : b.p[NK];
+        const char* pc = in_a ? a.p[nk] : b.p[nk];
         if (wide) {
           pv[r] = reinterpret_cast<const uint64_t*>(pc)[row];
         } else if (has_pay) {
@@ -139,7 +158,9 @@ __global__ void __launch_bounds__(kMergeThreads)
       const int i = tid + r * kMergeThreads;
       if (i < len) {
 #pragma unroll
-        for (int c = 0; c < NK; ++c) st.keys[c][i] = v[r][c];
+        for (int c = 0; c < NK; ++c) {
+          if (c < nk) st.keys[c][i] = v[r][c];
+        }
         if (wide) {
           st.pay.w64[i] = pv[r];
         } else if (has_pay) {
@@ -158,7 +179,7 @@ __global__ void __launch_bounds__(kMergeThreads)
   int hi = min(d, la);
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (staged_le<NK>(st.keys, mid, la + d - 1 - mid)) {
+    if (staged_le<NK>(st.keys, mid, la + d - 1 - mid, nk)) {
       lo = mid + 1;
     } else {
       hi = mid;
@@ -169,14 +190,16 @@ __global__ void __launch_bounds__(kMergeThreads)
   uint32_t ka[NK], kb[NK];
 #pragma unroll
   for (int c = 0; c < NK; ++c) {
-    ka[c] = st.keys[c][i < la ? i : 0];
-    kb[c] = st.keys[c][j < lb ? la + j : 0];
+    if (c < nk) {
+      ka[c] = st.keys[c][i < la ? i : 0];
+      kb[c] = st.keys[c][j < lb ? la + j : 0];
+    }
   }
   Vec<uint16_t, I> s{};
 #pragma unroll
   for (int r = 0; r < I; ++r) {
     if (r < nv) {
-      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb));
+      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb, nk));
       s.v[r] = static_cast<uint16_t>(take_a ? i : la + j);
       i += take_a;
       j += !take_a;
@@ -185,9 +208,11 @@ __global__ void __launch_bounds__(kMergeThreads)
       const int x = !more ? 0 : take_a ? i : la + j;
 #pragma unroll
       for (int c = 0; c < NK; ++c) {
-        const uint32_t y = st.keys[c][x];
-        ka[c] = take_a ? y : ka[c];
-        kb[c] = take_a ? kb[c] : y;
+        if (c < nk) {
+          const uint32_t y = st.keys[c][x];
+          ka[c] = take_a ? y : ka[c];
+          kb[c] = take_a ? kb[c] : y;
+        }
       }
     }
   }
@@ -204,6 +229,7 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 #pragma unroll
   for (int c = 0; c < NK; ++c) {
+    if (c >= nk) break;
     uint32_t* o = reinterpret_cast<uint32_t*>(out.p[c]) + d0;
 #pragma unroll
     for (int r = 0; r < I; ++r) {
@@ -212,12 +238,12 @@ __global__ void __launch_bounds__(kMergeThreads)
     }
   }
   if (wide) {
-    store_permuted(st.pay.w64, out.p[NK], d0, len, from);
+    store_permuted(st.pay.w64, out.p[nk], d0, len, from);
   } else if (has_pay) {
-    store_permuted(st.pay.w32, out.p[NK], d0, len, from);
+    store_permuted(st.pay.w32, out.p[nk], d0, len, from);
   }
   // any further payload column through the same buffer
-  for (int c = NK + 1; c < a.n; ++c) {
+  for (int c = nk + 1; c < a.n; ++c) {
     __syncthreads();  // the buffer's last column has left
     if (a.w[c] == 8) {
       move_column(a.p[c], b.p[c], out.p[c], st.pay.w64, a0, b0, d0, la, len,
@@ -229,25 +255,28 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-// int64 scratch elements (the tile split points) for runs of m and n rows.
-int64_t merge_scratch_elems(int64_t m, int64_t n) {
-  return ceil_div(m + n, kMergeTile) + 1;
+// int64 scratch elements (the tile split points) for runs of m and n rows
+// of n_keys key words.
+int64_t merge_scratch_elems(int n_keys, int64_t m, int64_t n) {
+  return ceil_div(m + n, merge_tile(n_keys)) + 1;
 }
 
 template <int NK>
-void launch_partition(const ColSet& a, const ColSet& b, int64_t m, int64_t n,
-                      int64_t* a_starts, cudaStream_t stream) {
-  const int64_t n_diags = merge_scratch_elems(m, n);
+void launch_partition(const ColSet& a, const ColSet& b, int n_keys,
+                      int64_t m, int64_t n, int64_t* a_starts,
+                      cudaStream_t stream) {
+  const int64_t n_diags = merge_scratch_elems(n_keys, m, n);
   merge_partition_kernel<NK>
       <<<static_cast<unsigned>(ceil_div(n_diags, 256)), 256, 0, stream>>>(
-          a, b, m, n, n_diags, kMergeTile, a_starts);
+          a, b, m, n, n_diags, merge_tile(NK), n_keys, a_starts);
 }
 
 }  // namespace
 }  // namespace tsx
 
-extern "C" int64_t tsx_merge_scratch_elems(int64_t m, int64_t n) {
-  return tsx::merge_scratch_elems(m, n);
+extern "C" int64_t tsx_merge_scratch_elems(int n_keys, int64_t m,
+                                           int64_t n) {
+  return tsx::merge_scratch_elems(n_keys, m, n);
 }
 
 extern "C" int tsx_merge_sorted(void* const* a, void* const* b,
@@ -266,12 +295,12 @@ extern "C" int tsx_merge_sorted(void* const* a, void* const* b,
     int64_t* a_starts = static_cast<int64_t*>(scratch);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const unsigned tiles =
-        static_cast<unsigned>(merge_scratch_elems(m, n) - 1);
-    with_cols<1, kMaxKeys>(n_keys, [&](auto nk) {
+        static_cast<unsigned>(merge_scratch_elems(n_keys, m, n) - 1);
+    with_keys(n_keys, [&](auto nk) {
       constexpr int NK = decltype(nk)::value;
-      launch_partition<NK>(ca, cb, m, n, a_starts, st);
-      merge_tile_kernel<NK><<<tiles, kMergeThreads, 0, st>>>(ca, cb, co, m, n,
-                                                             a_starts);
+      launch_partition<NK>(ca, cb, n_keys, m, n, a_starts, st);
+      merge_tile_kernel<NK><<<tiles, kMergeThreads, 0, st>>>(
+          ca, cb, co, m, n, n_keys, a_starts);
     });
   }
   return cudaGetLastError();
@@ -291,9 +320,9 @@ extern "C" int tsx_merge_partition(void* const* a, void* const* b, int n_keys,
     for (int c = 0; c < n_keys; ++c) widths[c] = 4;
     const ColSet ca = make_colset(a, widths, n_keys);
     const ColSet cb = make_colset(b, widths, n_keys);
-    with_cols<1, kMaxKeys>(n_keys, [&](auto nk) {
+    with_keys(n_keys, [&](auto nk) {
       launch_partition<decltype(nk)::value>(
-          ca, cb, m, n, static_cast<int64_t*>(scratch),
+          ca, cb, n_keys, m, n, static_cast<int64_t*>(scratch),
           static_cast<cudaStream_t>(stream));
     });
   }

@@ -35,21 +35,27 @@
 // The look-back (lookback.cuh, shared with kernel 1) carries only the head
 // counts, one 64-bit word per tile; the tile index comes from an atomic
 // counter, zeroed on every call.  Shared memory: the tile is 2048 rows up
-// to 3 key words and 1024 rows beyond (at most 40 KB at 8 key words, under
-// the 48 KB of static shared memory, four blocks on each SM).
+// to 3 key words, 1024 rows up to 8 (at most 40 KB at 8 key words, under
+// the 48 KB of static shared memory, four blocks on each SM) and 512 rows
+// beyond (39 KB at 17).  Key words 1 to 8 are each compiled as they are, 9
+// to 17 by one instantiation that reads the width at run time (merge.cuh);
+// it holds its rows' 17-word keys in registers, so it is bounded to 2
+// blocks an SM (128 registers a thread) rather than 4.
 //
 // Bound: device-memory bandwidth.  Each input row is read once (keys and
 // count, coalesced), each run written once (coalesced); the merge-path
 // searches, the tile statuses and the fix-ups are O(tiles).  Scratch is
 // O(tiles).
 //
-// Contract (ops/merge_dedupe.py): a and b hold n_keys (1..8) uint32 key words,
+// Contract (ops/merge_dedupe.py): a and b hold n_keys (1..17) uint32 key words,
 // most significant first, then one int64 count column; both runs ascending
 // under the unsigned lexicographic order, with invalid rows forming one
 // constant run at the end whose first key word is >= inv_min.  out gets the
 // n_runs distinct keys ascending with their summed counts (rows beyond are
 // unwritten); stats[0] = n_runs, stats[1] = n_runs less the trailing invalid
-// run if there is one.
+// run if there is one.  Runs out of order give unspecified rows and stats
+// (n_runs <= m + n), but nothing is read or written outside a, b, out and
+// the scratch (merge.cuh, tile_a_rows).
 
 #include "lookback.cuh"
 #include "merge.cuh"
@@ -62,7 +68,13 @@ constexpr int kDedupeThreads = 256;
 // Rows a thread merges at n_keys key words; the tile is kDedupeThreads
 // times that.
 __host__ __device__ constexpr int dedupe_items(int n_keys) {
-  return n_keys <= 3 ? 8 : 4;
+  return n_keys <= 3 ? 8 : n_keys <= kMaxFixedKeys ? 4 : 2;
+}
+
+// Blocks an SM the register budget is set for: 4 (64 registers a thread) up
+// to 8 key words, 2 beyond.
+__host__ __device__ constexpr int dedupe_min_blocks(int n_keys) {
+  return n_keys <= kMaxFixedKeys ? 4 : 2;
 }
 
 // A reduce-by-key value: n run heads, s the counts' sum since the last head.
@@ -108,18 +120,18 @@ __device__ __forceinline__ Rbk block_exclusive_rbk(Rbk v, Rbk* warp_sums,
 
 template <int NK>
 __device__ __forceinline__ bool keys_differ(const uint32_t (&x)[NK],
-                                            const uint32_t (&y)[NK]) {
+                                            const uint32_t (&y)[NK], int nk) {
   bool d = false;
 #pragma unroll
-  for (int c = 0; c < NK; ++c) d |= x[c] != y[c];
+  for (int c = 0; c < NK; ++c) d |= c < nk && x[c] != y[c];
   return d;
 }
 
-// At most 64 registers a thread, so that 4 blocks fit on an SM (76 without
-// the bound: 3 blocks, and 9 % slower on an H100).
+// At most 64 registers a thread up to 8 key words, so that 4 blocks fit on
+// an SM (76 without the bound: 3 blocks, and 9 % slower on an H100).
 template <int NK>
-__global__ void __launch_bounds__(kDedupeThreads, 4)
-    merge_dedupe_kernel(ColSet a, ColSet b, int64_t m, int64_t n,
+__global__ void __launch_bounds__(kDedupeThreads, dedupe_min_blocks(NK))
+    merge_dedupe_kernel(ColSet a, ColSet b, int64_t m, int64_t n, int n_keys,
                         const int64_t* __restrict__ a_starts, ColSet out,
                         uint32_t inv_min, int64_t* __restrict__ stats,
                         unsigned* tile_counter, uint64_t* status,
@@ -144,23 +156,26 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
   const int64_t d0 = t * T;
   const int len = static_cast<int>(min64(T, total - d0));
   const int64_t a0 = a_starts[t];
-  const int64_t a1 = a_starts[t + 1];
+  const int la = tile_a_rows(a0, a_starts[t + 1], len);
+  const int64_t a1 = a0 + la;
   const int64_t b0 = d0 - a0;
   const int64_t b1 = d0 + len - a1;
-  const int la = static_cast<int>(a1 - a0);
   const int lb = len - la;
   const bool has_prev = d0 > 0;
   const bool has_next = d0 + len < total;
+  const int nk = key_words<NK>(n_keys);
 
   const uint32_t* ak[NK];
   const uint32_t* bk[NK];
 #pragma unroll
   for (int c = 0; c < NK; ++c) {
-    ak[c] = reinterpret_cast<const uint32_t*>(a.p[c]);
-    bk[c] = reinterpret_cast<const uint32_t*>(b.p[c]);
+    if (c < nk) {
+      ak[c] = reinterpret_cast<const uint32_t*>(a.p[c]);
+      bk[c] = reinterpret_cast<const uint32_t*>(b.p[c]);
+    }
   }
-  const uint64_t* ac = reinterpret_cast<const uint64_t*>(a.p[NK]);
-  const uint64_t* bc = reinterpret_cast<const uint64_t*>(b.p[NK]);
+  const uint64_t* ac = reinterpret_cast<const uint64_t*>(a.p[nk]);
+  const uint64_t* bc = reinterpret_cast<const uint64_t*>(b.p[nk]);
   {
     // every load of the thread's staged rows is in flight before the
     // first store to shared memory waits on one
@@ -173,7 +188,9 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
         const bool in_a = i < la;
         const int64_t row = in_a ? a0 + i : b0 + (i - la);
 #pragma unroll
-        for (int c = 0; c < NK; ++c) sk[r][c] = (in_a ? ak[c] : bk[c])[row];
+        for (int c = 0; c < NK; ++c) {
+          if (c < nk) sk[r][c] = (in_a ? ak[c] : bk[c])[row];
+        }
         sc[r] = (in_a ? ac : bc)[row];
       }
     }
@@ -182,7 +199,9 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
       const int i = tid + r * kDedupeThreads;
       if (i < len) {
 #pragma unroll
-        for (int c = 0; c < NK; ++c) keys[c][i] = sk[r][c];
+        for (int c = 0; c < NK; ++c) {
+          if (c < nk) keys[c][i] = sk[r][c];
+        }
         cnt[i] = sc[r];
       }
     }
@@ -191,19 +210,23 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
   // the one after it the smaller of A[a1] and B[b1] (ties: keys are equal)
   if (tid == 0 && has_prev) {
     uint32_t ka[NK], kb[NK];
-    if (a0 > 0) load_key<NK>(a, a0 - 1, ka);
-    if (b0 > 0) load_key<NK>(b, b0 - 1, kb);
-    const bool take_b = a0 == 0 || (b0 > 0 && key_le<NK>(ka, kb));
+    if (a0 > 0) load_key<NK>(a, a0 - 1, ka, nk);
+    if (b0 > 0) load_key<NK>(b, b0 - 1, kb, nk);
+    const bool take_b = a0 == 0 || (b0 > 0 && key_le<NK>(ka, kb, nk));
 #pragma unroll
-    for (int c = 0; c < NK; ++c) edge[0][c] = take_b ? kb[c] : ka[c];
+    for (int c = 0; c < NK; ++c) {
+      if (c < nk) edge[0][c] = take_b ? kb[c] : ka[c];
+    }
   }
   if (tid == 32 && has_next) {
     uint32_t ka[NK], kb[NK];
-    if (a1 < m) load_key<NK>(a, a1, ka);
-    if (b1 < n) load_key<NK>(b, b1, kb);
-    const bool take_a = b1 >= n || (a1 < m && key_le<NK>(ka, kb));
+    if (a1 < m) load_key<NK>(a, a1, ka, nk);
+    if (b1 < n) load_key<NK>(b, b1, kb, nk);
+    const bool take_a = b1 >= n || (a1 < m && key_le<NK>(ka, kb, nk));
 #pragma unroll
-    for (int c = 0; c < NK; ++c) edge[1][c] = take_a ? ka[c] : kb[c];
+    for (int c = 0; c < NK; ++c) {
+      if (c < nk) edge[1][c] = take_a ? ka[c] : kb[c];
+    }
   }
   __syncthreads();
 
@@ -221,7 +244,7 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
     int hi = min(d, la);
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (staged_le<NK>(keys, mid, la + d - 1 - mid)) {
+      if (staged_le<NK>(keys, mid, la + d - 1 - mid, nk)) {
         lo = mid + 1;
       } else {
         hi = mid;
@@ -233,22 +256,29 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
   uint32_t prev[NK];
   bool prev_ok = true;
   if (d > 0) {
-    const int s = i == 0 || (j > 0 && staged_le<NK>(keys, i - 1, la + j - 1))
-                      ? la + j - 1
-                      : i - 1;
+    const int s =
+        i == 0 || (j > 0 && staged_le<NK>(keys, i - 1, la + j - 1, nk))
+            ? la + j - 1
+            : i - 1;
 #pragma unroll
-    for (int c = 0; c < NK; ++c) prev[c] = keys[c][s];
+    for (int c = 0; c < NK; ++c) {
+      if (c < nk) prev[c] = keys[c][s];
+    }
   } else if (has_prev) {
 #pragma unroll
-    for (int c = 0; c < NK; ++c) prev[c] = edge[0][c];
+    for (int c = 0; c < NK; ++c) {
+      if (c < nk) prev[c] = edge[0][c];
+    }
   } else {
     prev_ok = false;  // the first merged row starts the first run
   }
   uint32_t ka[NK], kb[NK];
 #pragma unroll
   for (int c = 0; c < NK; ++c) {
-    ka[c] = keys[c][i < la ? i : 0];
-    kb[c] = keys[c][j < lb ? la + j : 0];
+    if (c < nk) {
+      ka[c] = keys[c][i < la ? i : 0];
+      kb[c] = keys[c][j < lb ? la + j : 0];
+    }
   }
   uint32_t k[I][NK];
   uint64_t v[I];
@@ -257,10 +287,12 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
 #pragma unroll
   for (int r = 0; r < I; ++r) {
     if (r < nv) {
-      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb));
+      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb, nk));
       v[r] = cnt[take_a ? i : la + j];
 #pragma unroll
-      for (int c = 0; c < NK; ++c) k[r][c] = take_a ? ka[c] : kb[c];
+      for (int c = 0; c < NK; ++c) {
+        if (c < nk) k[r][c] = take_a ? ka[c] : kb[c];
+      }
       i += take_a;
       j += !take_a;
       // refill the front key of the side just taken
@@ -268,12 +300,14 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
       const int s = !more ? 0 : take_a ? i : la + j;
 #pragma unroll
       for (int c = 0; c < NK; ++c) {
-        const uint32_t x = keys[c][s];
-        ka[c] = take_a ? x : ka[c];
-        kb[c] = take_a ? kb[c] : x;
+        if (c < nk) {
+          const uint32_t x = keys[c][s];
+          ka[c] = take_a ? x : ka[c];
+          kb[c] = take_a ? kb[c] : x;
+        }
       }
-      head[r] = r == 0 ? !prev_ok || keys_differ<NK>(k[0], prev)
-                       : keys_differ<NK>(k[r], k[r - 1]);
+      head[r] = r == 0 ? !prev_ok || keys_differ<NK>(k[0], prev, nk)
+                       : keys_differ<NK>(k[r], k[r - 1], nk);
       mine = rbk(mine, Rbk{head[r] ? 1 : 0, v[r]});
     }
   }
@@ -283,16 +317,20 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
     uint32_t next[NK];
     bool next_ok = true;
     if (d + nv < len) {
-      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb));
+      const bool take_a = j >= lb || (i < la && key_le<NK>(ka, kb, nk));
 #pragma unroll
-      for (int c = 0; c < NK; ++c) next[c] = take_a ? ka[c] : kb[c];
+      for (int c = 0; c < NK; ++c) {
+        if (c < nk) next[c] = take_a ? ka[c] : kb[c];
+      }
     } else if (has_next) {
 #pragma unroll
-      for (int c = 0; c < NK; ++c) next[c] = edge[1][c];
+      for (int c = 0; c < NK; ++c) {
+        if (c < nk) next[c] = edge[1][c];
+      }
     } else {
       next_ok = false;  // the last merged row ends the last run
     }
-    last_end = !next_ok || keys_differ<NK>(k[nv - 1], next);
+    last_end = !next_ok || keys_differ<NK>(k[nv - 1], next, nk);
     if (d == 0) head0_sh = head[0] ? 1 : 0;
     if (d + nv == len) {
       last_end_sh = last_end ? 1 : 0;
@@ -319,7 +357,9 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
       if (end) {
         const int slot = static_cast<int>(run.n) - head0_sh;
 #pragma unroll
-        for (int c = 0; c < NK; ++c) keys[c][slot] = k[r][c];
+        for (int c = 0; c < NK; ++c) {
+          if (c < nk) keys[c][slot] = k[r][c];
+        }
         cnt[slot] = run.s;
       }
     }
@@ -343,11 +383,11 @@ __global__ void __launch_bounds__(kDedupeThreads, 4)
     // the tile's first run began in an earlier tile and ends here
     fix_at[t] = !head0_sh && n_out > 0 ? o_lo : -1;
   }
-  uint64_t* oc = reinterpret_cast<uint64_t*>(out.p[NK]);
+  uint64_t* oc = reinterpret_cast<uint64_t*>(out.p[nk]);
   for (int q = tid; q < n_out; q += kDedupeThreads) {
 #pragma unroll
     for (int c = 0; c < NK; ++c) {
-      reinterpret_cast<uint32_t*>(out.p[c])[o_lo + q] = keys[c][q];
+      if (c < nk) reinterpret_cast<uint32_t*>(out.p[c])[o_lo + q] = keys[c][q];
     }
     oc[o_lo + q] = cnt[q];
   }
@@ -460,27 +500,27 @@ int64_t dedupe_tiles(int n_keys, int64_t total) {
 
 template <int NK>
 void launch_merge_dedupe_nk(const ColSet& a, const ColSet& b,
-                            const ColSet& out, int64_t m, int64_t n,
-                            uint32_t inv_min, int64_t* stats, char* scratch,
-                            cudaStream_t stream) {
+                            const ColSet& out, int n_keys, int64_t m,
+                            int64_t n, uint32_t inv_min, int64_t* stats,
+                            char* scratch, cudaStream_t stream) {
   constexpr int T = kDedupeThreads * dedupe_items(NK);
   const int64_t tiles = dedupe_tiles(NK, m + n);
   const Scratch s = carve(scratch, tiles);
   cudaMemsetAsync(scratch, 0, s.zeroed_bytes, stream);
   merge_partition_kernel<NK>
       <<<static_cast<unsigned>(ceil_div(tiles + 1, 256)), 256, 0, stream>>>(
-          a, b, m, n, tiles + 1, T, s.a_starts);
+          a, b, m, n, tiles + 1, T, n_keys, s.a_starts);
   merge_dedupe_kernel<NK><<<static_cast<unsigned>(tiles), kDedupeThreads, 0,
-                            stream>>>(a, b, m, n, s.a_starts, out, inv_min,
-                                      stats, s.tile_counter, s.status,
-                                      s.tile_sum, s.fix_at);
+                            stream>>>(a, b, m, n, n_keys, s.a_starts, out,
+                                      inv_min, stats, s.tile_counter,
+                                      s.status, s.tile_sum, s.fix_at);
   const unsigned fix_blocks =
       static_cast<unsigned>(ceil_div(tiles, kFixThreads));
   fix_reduce_kernel<<<fix_blocks, kFixThreads, 0, stream>>>(
       s.status, s.tile_sum, tiles, s.block_agg);
   fix_apply_kernel<<<fix_blocks, kFixThreads, 0, stream>>>(
       s.fix_at, s.status, s.tile_sum, tiles, s.block_agg,
-      reinterpret_cast<uint64_t*>(out.p[NK]));
+      reinterpret_cast<uint64_t*>(out.p[n_keys]));
 }
 
 }  // namespace
@@ -515,15 +555,9 @@ extern "C" int tsx_merge_dedupe_sorted(void* const* a, void* const* b,
   const ColSet cb = make_colset(b, widths, n_keys + 1);
   const ColSet co = make_colset(out, widths, n_keys + 1);
   char* sc = static_cast<char*>(scratch);
-  switch (n_keys) {
-    case 1: launch_merge_dedupe_nk<1>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 2: launch_merge_dedupe_nk<2>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 3: launch_merge_dedupe_nk<3>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 4: launch_merge_dedupe_nk<4>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 5: launch_merge_dedupe_nk<5>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 6: launch_merge_dedupe_nk<6>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    case 7: launch_merge_dedupe_nk<7>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-    default: launch_merge_dedupe_nk<8>(ca, cb, co, m, n, inv_min, stat, sc, st); break;
-  }
+  with_keys(n_keys, [&](auto nk) {
+    launch_merge_dedupe_nk<decltype(nk)::value>(ca, cb, co, n_keys, m, n,
+                                                inv_min, stat, sc, st);
+  });
   return cudaGetLastError();
 }

@@ -29,7 +29,8 @@ def compact_flagged_plain(flag: torch.Tensor, cols) -> tuple:
 
 
 def compact_flagged(flag: torch.Tensor, cols) -> tuple:
-    """flag int32 or bool [T]; cols: int32/int64 [T] columns (at most 16).
+    """flag int32 or bool [T]; cols: int32/int64 [T] columns (at most
+    _build.MAX_COLS for the kernel).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream (no synchronisation); any other device raises.
@@ -41,8 +42,9 @@ def compact_flagged(flag: torch.Tensor, cols) -> tuple:
     if dev.type == "cpu":
         return compact_flagged_plain(flag, cols)
     _build.require_cuda("compact_flagged", dev)
-    if len(cols) > 16:
-        raise ValueError("compact_flagged: at most 16 columns")
+    if len(cols) > _build.MAX_COLS:
+        raise ValueError(f"compact_flagged: at most {_build.MAX_COLS} "
+                         f"columns")
     out = tuple(torch.empty_like(c) for c in cols)
     if n == 0:
         return out

@@ -12,6 +12,14 @@ with the invalid flag packed into the first spare bit above the key, so
 invalid windows sort after every real k-mer and never alias one (poly-T
 included).  At k % 16 == 0 the top lane is full and the flag is a separate
 0/1 column in front.
+
+Keys that are the images of a bijection with a uniform msb prefix (the lane
+mix, ops/mix.py) need only that prefix sorted: `uniform_prefix=True` sorts
+on the first operands covering >= 64 key bits and carries the rest.  Equal
+keys still meet; two distinct valid keys that agree on the whole prefix
+(probability ~P^2 / 2^65 a batch) would split a run, and are detected
+exactly in `UniqueCounts.collided` for the caller to recount with the full
+sort.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ class UniqueCounts(NamedTuple):
     counts: torch.Tensor    # int32 [P]
     valid: torch.Tensor     # bool  [P]
     n_unique: torch.Tensor  # int64 0-d
+    # bool 0-d with uniform_prefix (else None): two distinct valid keys
+    # agreed on the sorted prefix, so this histogram may be wrong
+    collided: torch.Tensor | None = None
 
 
 def flag_ops(spec: KmerSpec) -> int:
@@ -108,12 +119,45 @@ def sort_ops(ops: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return [op[perm] for op in ops]
 
 
-def count_unique(kmers, valid: torch.Tensor,
-                 spec: KmerSpec) -> UniqueCounts:
+def uniform_prefix_nk(spec: KmerSpec) -> int:
+    """Operands covering >= 64 uniform key bits: the msb operand holds
+    spec.top_lane_bits of key beside the invalid flag (none when the top
+    lane is full and the flag stands alone), every further one 32."""
+    key_bits_in_top = spec.top_lane_bits if spec.top_lane_bits < 32 else 0
+    return 1 + -(-max(1, 64 - key_bits_in_top) // 32)
+
+
+def sort_uniform_prefix(ops: Sequence[torch.Tensor], spec: KmerSpec
+                        ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Rows sorted on the uniform prefix (stably), the other operands
+    riding along, and whether two distinct valid keys collided: adjacent
+    rows equal on the prefix and different after it.  A valid row and an
+    invalid one never agree on the prefix (the flag is in its first
+    operand), so the first row's validity decides."""
+    nk = uniform_prefix_nk(spec)
+    if len(ops) <= nk:
+        return sort_ops(ops), torch.zeros((), dtype=torch.bool,
+                                          device=ops[0].device)
+    perm = lexsort_perm(ops[:nk])
+    s = [op[perm] for op in ops]
+    same = s[0][1:] == s[0][:-1]
+    for op in s[1:nk]:
+        same &= op[1:] == op[:-1]
+    diff = s[nk][1:] != s[nk][:-1]
+    for op in s[nk + 1 :]:
+        diff |= op[1:] != op[:-1]
+    row_valid = ~invalid_bits((s[0][:-1],), spec)
+    return s, (same & diff & row_valid).any()
+
+
+def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
+                 uniform_prefix: bool = False) -> UniqueCounts:
     """Exact histogram of the valid rows of `kmers`.
 
     kmers: (P, lanes) int32 keys, or a sequence of per-lane columns (lsb
-    lane first, as extract_kmer_cols returns them).
+    lane first, as extract_kmer_cols returns them).  uniform_prefix: the
+    keys carry a uniform >= 64-bit msb prefix (lane-mix images); sort on
+    it and report collisions (sort_uniform_prefix).
     """
     if isinstance(kmers, (list, tuple)):
         ops = pack_flag_key_cols(kmers, ~valid, spec)
@@ -121,7 +165,11 @@ def count_unique(kmers, valid: torch.Tensor,
         ops = pack_flag_key(kmers, ~valid, spec)
     p = ops[0].shape[0]
     dev = ops[0].device
-    ops_sorted = sort_ops(ops)
+    collided = None
+    if uniform_prefix:
+        ops_sorted, collided = sort_uniform_prefix(ops, spec)
+    else:
+        ops_sorted = sort_ops(ops)
     flag = boundary_flags(ops_sorted)
     arange = torch.arange(p, dtype=torch.int32, device=dev)
     rep = compact_flagged(flag, tuple(ops_sorted) + (arange,))
@@ -134,5 +182,5 @@ def count_unique(kmers, valid: torch.Tensor,
     n_unique = (flag & ~invalid_bits(ops_sorted, spec)).sum()
     return UniqueCounts(
         keys=ukeys, counts=counts, valid=arange < n_unique,
-        n_unique=n_unique,
+        n_unique=n_unique, collided=collided,
     )

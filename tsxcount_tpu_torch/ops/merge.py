@@ -6,7 +6,9 @@ columns; the first `n_keys` are uint32 key words (int32 bit patterns), most
 significant first, ascending under the unsigned lexicographic order; the
 rest are payload (int32 or int64, the same dtype in both runs).  The result
 has M + N rows; on ties A's rows come first and each run keeps its order.
-Unlike the TPU kernel there is no length or MAX_KEY restriction.
+Unlike the TPU kernel there is no length or MAX_KEY restriction; the plain
+version takes any number of key words, the CUDA kernel up to MAX_KEYS (k =
+256: 16 lanes and the invalid flag) and _build.MAX_COLS columns in all.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 from tsxcount_tpu_torch import _build
 from tsxcount_tpu_torch.ops.lanes import lexsort_perm
 
-MAX_KEYS = 8
+MAX_KEYS = 17  # kMaxKeys of csrc/merge.cuh
 _COL_DTYPES = (torch.int32, torch.int64)
 
 
@@ -31,8 +33,8 @@ def check_runs(name: str, a_cols, b_cols, n_keys: int) -> torch.device:
     """Validate two runs of columns for the merge kernels; return device."""
     if len(a_cols) != len(b_cols) or not a_cols:
         raise ValueError(f"{name}: runs need the same number of columns")
-    if not 1 <= n_keys <= min(MAX_KEYS, len(a_cols)):
-        raise ValueError(f"{name}: n_keys must be in [1, {MAX_KEYS}]")
+    if not 1 <= n_keys <= len(a_cols):
+        raise ValueError(f"{name}: n_keys must be in [1, {len(a_cols)}]")
     dev = _build.check_columns(name, a_cols, _COL_DTYPES,
                                a_cols[0].shape[0])
     _build.check_columns(name, b_cols, _COL_DTYPES, b_cols[0].shape[0], dev)
@@ -40,6 +42,13 @@ def check_runs(name: str, a_cols, b_cols, n_keys: int) -> torch.device:
         if a.dtype != b.dtype or (i < n_keys and a.dtype != torch.int32):
             raise TypeError(f"{name}: column {i} dtypes {a.dtype}/{b.dtype}")
     return dev
+
+
+def check_kernel_width(name: str, n_cols: int, n_keys: int) -> None:
+    """Raise unless the CUDA kernels take this many columns and keys."""
+    if n_cols > _build.MAX_COLS or n_keys > MAX_KEYS:
+        raise ValueError(f"{name}: the kernel takes at most {MAX_KEYS} key "
+                         f"words and {_build.MAX_COLS} columns")
 
 
 def merge_sorted(a_cols, b_cols, n_keys: int = 1) -> tuple:
@@ -50,8 +59,7 @@ def merge_sorted(a_cols, b_cols, n_keys: int = 1) -> tuple:
     if dev.type == "cpu":
         return merge_sorted_plain(a_cols, b_cols, n_keys)
     _build.require_cuda("merge_sorted", dev)
-    if len(a_cols) > 16:
-        raise ValueError("merge_sorted: at most 16 columns")
+    check_kernel_width("merge_sorted", len(a_cols), n_keys)
     m, n = a_cols[0].shape[0], b_cols[0].shape[0]
     out = tuple(
         torch.empty(m + n, dtype=a.dtype, device=dev) for a in a_cols
@@ -60,7 +68,8 @@ def merge_sorted(a_cols, b_cols, n_keys: int = 1) -> tuple:
         return out
     lib = _build.kernels()
     scratch = torch.empty(
-        lib.tsx_merge_scratch_elems(m, n), dtype=torch.int64, device=dev
+        lib.tsx_merge_scratch_elems(n_keys, m, n), dtype=torch.int64,
+        device=dev
     )
     rc = lib.tsx_merge_sorted(
         _build.ptr_array(a_cols), _build.ptr_array(b_cols),

@@ -21,7 +21,11 @@ import torch
 
 from tsxcount_tpu_torch import _build
 from tsxcount_tpu_torch.ops.lanes import u32
-from tsxcount_tpu_torch.ops.merge import check_runs, merge_sorted_plain
+from tsxcount_tpu_torch.ops.merge import (
+    check_kernel_width,
+    check_runs,
+    merge_sorted_plain,
+)
 
 
 def merge_dedupe_sorted_plain(a_cols, b_cols, n_keys: int, inv_min: int):
@@ -64,6 +68,7 @@ def merge_dedupe_sorted(a_cols, b_cols, n_keys: int, inv_min: int):
     if dev.type == "cpu":
         return merge_dedupe_sorted_plain(a_cols, b_cols, n_keys, inv_min)
     _build.require_cuda(name, dev)
+    check_kernel_width(name, len(a_cols), n_keys)
     m, n = a_cols[0].shape[0], b_cols[0].shape[0]
     out = tuple(
         torch.empty(m + n, dtype=a.dtype, device=dev) for a in a_cols
