@@ -50,6 +50,22 @@ non-zero and no result line is printed):
      with hash_first=False (the same export; cold and warm walls of both,
      and the device's busy time over one more warm count of each, from a
      torch.profiler trace: the auto rule's A/B);
+  7. the user surface: the bench FASTQ at k=14, l=26, batch_words 2^16
+     (the counter's defaults) with the LSM store at growth 8 (levels 2^25,
+     2^26, by the auto rule) and 2 (2^23 .. 2^26, cascades during the
+     count) and with the flat store, each export against the numpy count
+     (cold, warm and busy times, the levels, the absorbs, the launches);
+     kernel 3 at the LSM absorb's shape (the collapsed 2^26-row top level
+     + the 2^25-row L0, from that count) exact and timed beside its bound;
+     canonical counts (sort k=31 l=25, table k=14 l=26) against numpy
+     canonical counts, walls beside the plain counts'; a count split in two
+     halves with save_counter / load_counter between them (sort with the
+     LSM, table), equal to the whole count; the command line in process at
+     its defaults (--stats-json --save-state: the totals), one
+     `python -m tsxcount_tpu_torch count --dump --check` process on a
+     small file (exit 0), --checkabort (200) and a too-small --l (42); and
+     the memory model's estimate held above the allocator's peak for the
+     LSM, canonical and command-line counts;
 then the kernels' JSON line (the contract's keys; extra times, floors and
 bounds only in the kernel_time lines), the nvidia-smi line, and as the
 last line
@@ -59,6 +75,9 @@ tsxcount_tpu_torch/build/ (gitignored).  No JAX is imported.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
 import subprocess
 import sys
@@ -100,6 +119,13 @@ from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
     lane_mix,
     lane_mix_plain,
 )
+from tsxcount_tpu_torch import cli  # noqa: E402
+from tsxcount_tpu_torch.core.checkpoint import (  # noqa: E402
+    load_counter,
+    save_counter,
+)
+from tsxcount_tpu_torch.utils.hbm import estimate_for  # noqa: E402
+from tsxcount_tpu_torch.utils.profiling import device_busy_us  # noqa: E402
 
 K = 14
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device-memory rate (data sheet)
@@ -673,7 +699,9 @@ def host_count(path: Path, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 def export(counter: KmerCounter) -> tuple[np.ndarray, np.ndarray]:
-    """(int64 keys ascending, counts) of the counter's full export."""
+    """(int64 keys ascending, counts) of the counter's full export (k <=
+    32); reading `distinct` first collapses an LSM store."""
+    counter.distinct
     if counter.backend == "sort":
         keys, counts, _ = counter.store.to_host(counter.state)
     else:  # slot order: sort by key
@@ -1112,8 +1140,8 @@ def check_wide_export(counter: KmerCounter, want: tuple, tag: str) -> None:
 
 
 def device_busy_ms(fn) -> float:
-    """The union of the CUDA kernel and copy intervals of a torch.profiler
-    trace of fn() (ms): the card's busy time, whatever the host did."""
+    """The card's busy time over fn() (ms): the union of the CUDA kernel and
+    copy intervals of a torch.profiler trace, whatever the host did."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1121,26 +1149,18 @@ def device_busy_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
+    busy = device_busy_us(prof) / 1e3
+    if busy <= 0:
         raise AssertionError("the trace holds no device activity")
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return (busy + cur_e - cur_s) / 1e3
+    return busy
 
 
-def wide_end_to_end(path: Path) -> dict:
+def wide_end_to_end(path: Path) -> tuple[dict, tuple]:
     """The sort backend at k = 31, 63, 127 and 256 against numpy counts,
     and k=127 without the lane mix; cold and warm walls of both k=127
     counts.  Returns the launches summed over the cold counts (each read
-    from counts zeroed just before it)."""
+    from counts zeroed just before it) and the numpy count at k=31 (keys,
+    counts), which phase 7 folds to canonical."""
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     wants = {}
     for k, hash_first in WIDE_RUNS:
@@ -1184,7 +1204,345 @@ def wide_end_to_end(path: Path) -> dict:
                   kmers_per_s_warm=round(total / warm),
                   warm_device_busy_ms=round(busy, 3))
         del counter
+    return launches, wants[31][:2]
+
+
+# --- phase 7 ----------------------------------------------------------------
+
+LSM_RUNS = (("lsm_growth8", dict(lsm=None)),       # the auto rule engages
+            ("lsm_growth2", dict(lsm=None, lsm_growth=2)),
+            ("flat", dict(lsm=False)))
+ABSORB = "absorb_rows2^26+2^25"
+
+
+def peak_checked(tag: str, fn, estimate):
+    """fn() with the allocator's peak measured from just before it (so a
+    counter that fn makes counts its state); estimate(fn's result) is the
+    memory model's figure in MiB, which may not be below the peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    peak = torch.cuda.max_memory_allocated() - base
+    est_mb = estimate(out)
+    est_b = est_mb * 2**20
+    phase("memory", run=tag, estimate_mb=round(est_mb, 1),
+          peak_mb=round(peak / 2**20, 1), base_mb=round(base / 2**20, 1),
+          estimate_over_peak=round(est_b / peak, 3))
+    if est_b < peak:
+        raise AssertionError(f"{tag}: memory estimate {est_mb:.1f} MB "
+                             f"below the measured peak {peak / 2**20:.1f}")
+    return out
+
+
+def made_and_counted(path: Path, **kw) -> tuple:
+    """(a new counter on the card, its cold count's wall seconds)."""
+    c = KmerCounter(device="cuda", **kw)
+    return c, timed_count(c, path)
+
+
+def counter_estimate(made: tuple) -> float:
+    return estimate_for(made[0]).total_mb
+
+
+def check_export(counter: KmerCounter, want: tuple, tag: str) -> None:
+    got = export(counter)
+    if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{tag}: export differs from the numpy count")
+
+
+def require_kernels(run: dict, names, tag: str) -> None:
+    for name in names:
+        if run[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} not launched")
+
+
+def lsm_counts(path: Path, want: tuple, results: dict) -> dict:
+    """k=14, l=26, batch_words 2^16, merge_every 4 (the counter's
+    defaults): the LSM store by the auto rule at growth 8 (levels 2^25,
+    2^26) and 2 (2^23 .. 2^26, cascades during the count), and the flat
+    store; each export against the numpy count, cold, warm and busy times.
+    Then kernel 3 at the absorb shape on the growth-8 count's own levels.
+    Returns the growth-8 cold count's launches (its collapse included)."""
+    out = {}
+    for tag, kw in LSM_RUNS:
+        _build.reset_launch_counts()
+        c, cold = peak_checked(
+            f"{tag},cold", lambda: made_and_counted(
+                path, k=K, l=26, batch_words=1 << 16, merge_every=4, **kw),
+            counter_estimate)
+        if c.lsm != (kw["lsm"] is None):
+            raise AssertionError(f"{tag}: lsm={c.lsm}")
+        levels = c.state if c.lsm else [c.state]
+        rows = [int(st.n) for st in levels]
+        l0 = levels[0] if tag == "lsm_growth8" else None  # pre-collapse
+        c.distinct  # the collapse: part of the path
+        launches = _build.launch_counts()
+        require_kernels(launches, SORT_KERNELS, tag)
+        check_export(c, want, tag)
+        absorbs = c.store.absorbs if c.lsm else 0
+        if l0 is not None:
+            out = launches
+            check_absorb(results, c.state[-1], l0, launches)
+        c.reset()
+        warm = timed_count(c, path)
+        c.reset()
+        busy = device_busy_ms(lambda: c.count_file(path, use_native=True))
+        phase("e2e_lsm", run=tag, lsm=c.lsm,
+              levels=[lv.capacity for lv in c.store.levels] if c.lsm
+              else [c.store.capacity],
+              level_rows_after_count=rows, absorbs_cold=absorbs,
+              batches=c.batches_processed, cold_s=round(cold, 4),
+              warm_s=round(warm, 4), warm_device_busy_ms=round(busy, 3),
+              launches=launches)
+        del c, levels, l0
+    return out
+
+
+def check_absorb(results: dict, top, l0, launches: dict) -> None:
+    """Kernel 3 at the LSM absorb's shape: the collapsed 2^26-row top level
+    and the 2^25-row L0 that held the whole count before the collapse (so
+    every key meets its twin), exact against its plain version."""
+    a = tuple(top.keys.unbind(0)) + (top.counts,)
+    b = tuple(l0.keys.unbind(0)) + (l0.counts,)
+    got, g_runs, g_valid = merge_dedupe_sorted(a, b, 1, INV14)
+    want, w_runs, w_valid = merge_dedupe_sorted_plain(a, b, 1, INV14)
+    runs = int(w_runs)
+    if (int(g_runs), int(g_valid)) != (runs, int(w_valid)):
+        raise AssertionError(f"absorb: runs/valid {int(g_runs)}/"
+                             f"{int(g_valid)} != {runs}/{int(w_valid)}")
+    err = max_err(got, want, runs)
+    del got, want
+    m, n = a[0].numel(), b[0].numel()
+    phase("kernel", name="merge_dedupe_sorted", case="lsm_absorb",
+          rows=m + n, store_rows=(int(top.n), int(l0.n)), runs=runs,
+          max_abs_err=err)
+    r3 = results["merge_dedupe_sorted"]
+    r3["max_abs_err"] = max(r3["max_abs_err"], err)
+    r3["extra"][f"ms_{ABSORB}"] = cuda_ms(
+        lambda: merge_dedupe_sorted(a, b, 1, INV14))
+    r3["extra"][f"plain_ms_{ABSORB}"] = cuda_ms(
+        lambda: merge_dedupe_sorted_plain(a, b, 1, INV14))
+    # (int32 key, int64 count) of every input row read, of every run written
+    r3["extra"][f"bound_ms_{ABSORB}"] = bytes_ms((m + n + runs) * 12)
+    r3["extra"]["launches_lsm_path"] = launches["merge_dedupe_sorted"]
+
+
+def np_revcomp(keys: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complements of k <= 32 keys (uint64, base i at bits 2i):
+    complement by NOT, reverse the 2-bit groups of the 64-bit word, shift
+    the key down.  Numpy only."""
+    x = ~keys.astype(np.uint64)
+    for sh, m in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                  (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        m, sh = np.uint64(m), np.uint64(sh)
+        x = ((x & m) << sh) | ((x >> sh) & m)
+    x = (x << np.uint64(32)) | (x >> np.uint64(32))
+    return x >> np.uint64(64 - 2 * k)
+
+
+def canonical_host(keys: np.ndarray, counts: np.ndarray, k: int) -> tuple:
+    """A numpy count's canonical counts: min(key, revcomp), summed."""
+    u = keys.astype(np.uint64)
+    canon = np.minimum(u, np_revcomp(u, k))
+    uniq, inv = np.unique(canon, return_inverse=True)
+    return uniq.astype(np.int64), np.bincount(
+        inv, weights=counts, minlength=len(uniq)).astype(np.int64)
+
+
+def canonical_counts(path: Path, want14: tuple, want31: tuple) -> dict:
+    """Canonical counting on the sort backend at k=31 (l=25) and on the
+    table at k=14 (l=26), each export against a numpy canonical count
+    (from phase 4's and phase 6's numpy counts), cold and warm walls
+    beside the plain count's; returns the launches of both canonical cold
+    counts."""
+    lanes31 = want31[0].astype(np.uint64)
+    keys31 = lanes31[:, 0] | (lanes31[:, 1] << np.uint64(32))
+    cases = (("sort", 31, 25, canonical_host(keys31, want31[1], 31),
+              SORT_KERNELS),
+             ("table", 14, 26, canonical_host(*want14, 14), TABLE_KERNELS))
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    for backend, k, l, want, names in cases:
+        walls = {}
+        for canonical in (True, False):
+            _build.reset_launch_counts()
+            kw = dict(k=k, l=l, backend=backend, batch_words=1 << 20,
+                      canonical=canonical)
+            if canonical:
+                c, cold = peak_checked(
+                    f"canonical,{backend},k={k}",
+                    lambda: made_and_counted(path, **kw), counter_estimate)
+                run = _build.launch_counts()
+                require_kernels(run, names, f"canonical {backend}")
+                for name in run:
+                    launches[name] += run[name]
+                check_export(c, want, f"canonical {backend} k={k}")
+            else:
+                c, cold = made_and_counted(path, **kw)
+            c.reset()
+            walls[canonical] = (cold, timed_count(c, path))
+            del c
+        phase("e2e_canonical", backend=backend, k=k, l=l,
+              distinct=len(want[0]), total=int(want[1].sum()),
+              canonical_cold_s=round(walls[True][0], 4),
+              canonical_warm_s=round(walls[True][1], 4),
+              plain_cold_s=round(walls[False][0], 4),
+              plain_warm_s=round(walls[False][1], 4))
     return launches
+
+
+def split_fastq(path: Path) -> tuple[Path, Path]:
+    """The FASTQ's first and second halves of reads as two files."""
+    lines = path.read_bytes().splitlines(keepends=True)
+    half = len(lines) // 8 * 4
+    parts = (path.with_suffix(".half1.fastq"),
+             path.with_suffix(".half2.fastq"))
+    for part, chunk in zip(parts, (lines[:half], lines[half:])):
+        part.write_bytes(b"".join(chunk))
+    return parts
+
+
+def split_runs(path: Path, want: tuple) -> dict:
+    """Count the first half of the reads, save_counter, load_counter on the
+    card, count the second half: the export equals the whole-file count,
+    on the sort backend with the LSM store and on the table."""
+    halves = split_fastq(path)
+    ckpt = _build.BUILD_DIR / "split.npz"
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    for backend, bw in (("sort", 1 << 16), ("table", 1 << 20)):
+        c = KmerCounter(k=K, l=26, backend=backend, batch_words=bw,
+                        device="cuda")
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        c.count_file(halves[0], use_native=True)
+        t1 = time.perf_counter()
+        save_counter(c, ckpt)
+        t2 = time.perf_counter()
+        del c
+        c = load_counter(ckpt, batch_words=bw, device="cuda")
+        t3 = time.perf_counter()
+        c.count_file(halves[1], use_native=True)
+        run = _build.launch_counts()
+        require_kernels(run, SORT_KERNELS if backend == "sort"
+                        else TABLE_KERNELS, f"split {backend}")
+        for name in run:
+            launches[name] += run[name]
+        check_export(c, want, f"split-run {backend}")
+        if c.total_kmers != TOTAL_KMERS:
+            raise AssertionError(f"split-run {backend}: total {c.total_kmers}")
+        phase("e2e_split_run", backend=backend, lsm=c.lsm,
+              first_half_s=round(t1 - t0, 4), save_s=round(t2 - t1, 4),
+              load_s=round(t3 - t2, 4),
+              file_mb=round(ckpt.stat().st_size / 2**20, 1),
+              total_kmers=c.total_kmers, distinct=c.distinct)
+        del c
+        ckpt.unlink()
+    for part in halves:
+        part.unlink()
+    return launches
+
+
+def golden_text(keys: np.ndarray, counts: np.ndarray, k: int) -> str:
+    """A numpy count as `kmer\tcount` lines sorted by k-mer string: the
+    form of the CLI's --dump (write_golden with sort=True)."""
+    codes = (keys[:, None] >> (2 * np.arange(k))) & 3
+    kmers = np.frombuffer(b"ACGT", np.uint8)[codes].view(f"S{k}").ravel()
+    order = np.argsort(kmers, kind="stable")
+    return "".join(f"{m}\t{c}\n" for m, c in zip(
+        kmers[order].astype(f"U{k}").tolist(), counts[order].tolist()))
+
+
+def cli_runs(path: Path) -> dict:
+    """The command line: in process at its defaults on the bench FASTQ
+    with --stats-json --save-state (totals, the memory estimate against the
+    peak); one `python -m tsxcount_tpu_torch count` process on the small
+    file with --dump --check (exit 0, the dump byte for byte the golden
+    file);
+    --checkabort against a one-line golden file whose count is off by one
+    (exit 200) and a too-small --l (exit 42), in process.  Returns the in-process
+    default run's launches."""
+    ckpt = _build.BUILD_DIR / "cli.npz"
+    out = io.StringIO()
+    _build.reset_launch_counts()
+
+    def run():
+        with contextlib.redirect_stdout(out):
+            return cli.main(["count", "--input", str(path), "--stats-json",
+                             "--save-state", str(ckpt)])
+
+    def cli_estimate(_rc) -> float:
+        # the estimate of the counter the CLI built, from its stats line
+        return json.loads(out.getvalue().strip().splitlines()[-1])[
+            "memory_estimate_mb"]
+
+    rc = peak_checked("cli,defaults", run, cli_estimate)
+    launches = _build.launch_counts()
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    phase("cli", run="defaults", rc=rc, total_kmers=stats["total_kmers"],
+          distinct=stats["distinct_kmers"], lsm=stats["lsm"],
+          wall_s=stats["wall_seconds"],
+          kmers_per_s=stats["kmers_per_second"],
+          state_mb=round(ckpt.stat().st_size / 2**20, 1), launches=launches)
+    if rc != 0 or (stats["total_kmers"], stats["distinct_kmers"]) != (
+            TOTAL_KMERS, DISTINCT_KMERS):
+        raise AssertionError(f"cli defaults: rc {rc}, totals "
+                             f"{stats['total_kmers']}/"
+                             f"{stats['distinct_kmers']}")
+    require_kernels(launches, SORT_KERNELS, "cli")
+    ckpt.unlink()
+
+    small = _build.BUILD_DIR / "small.2000.fastq"
+    bench.ensure_synth_fastq(small, 2000, seed=7)
+    golden = golden_text(*host_count(small, K), K)
+    Path(f"{small}.{K}.count").write_text(golden)
+    dump = _build.BUILD_DIR / "small.dump.count"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tsxcount_tpu_torch", "count", "--input",
+         str(small), "--dump", str(dump), "--check"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    check_line = [ln for ln in proc.stderr.splitlines()
+                  if ln.startswith("check:")]
+    phase("cli", run="subprocess --dump --check", rc=proc.returncode,
+          seconds=round(time.perf_counter() - t0, 3),
+          check=repr(check_line[-1] if check_line else None))
+    if proc.returncode != 0 or dump.read_text() != golden:
+        raise AssertionError(f"cli subprocess: rc {proc.returncode}\n"
+                             f"{proc.stderr[-3000:]}")
+    kmer, count = golden.split("\n", 1)[0].split("\t")
+    bad_path = _build.BUILD_DIR / "small.bad.count"
+    bad_path.write_text(f"{kmer}\t{int(count) + 1}\n")  # off by one
+    for tag, argv, want_rc in (
+            ("checkabort", ["--checkabort", "--golden", str(bad_path)], 200),
+            ("l=16", ["--l", "16"], 42)):
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["count", "--input", str(small), *argv])
+        phase("cli", run=tag, rc=rc)
+        if rc != want_rc:
+            raise AssertionError(f"cli {tag}: exit {rc}, not {want_rc}")
+    for f in (dump, bad_path):
+        f.unlink()
+    return launches
+
+
+def user_surface(path: Path, want: tuple, want31: tuple,
+                 results: dict) -> tuple:
+    """Phase 7.  Returns (the LSM count's launches, the other counts'
+    launches summed)."""
+    lsm = lsm_counts(path, want, results)
+    user = dict.fromkeys(_build.LAUNCHES, 0)
+    for run in (canonical_counts(path, want, want31), split_runs(path, want),
+                cli_runs(path)):
+        for name in user:
+            user[name] += run[name]
+    return lsm, user
+
+
+def check_errors(results: dict) -> None:
+    for kname, r in results.items():
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{kname} differs from its plain version")
 
 
 def main() -> int:
@@ -1197,14 +1555,7 @@ def main() -> int:
     check_apply_kernels(results)
     check_lane_mix(results)
     check_wide_kernels(results)
-    for kname, r in results.items():
-        times = {k: v for k, v in r.items() if k not in ("max_abs_err",
-                                                         "extra")}
-        phase("kernel_time", name=kname,
-              **{k: v if v is None else round(v, 4)
-                 for k, v in (times | r.get("extra", {})).items()})
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"{kname} differs from its plain version")
+    check_errors(results)
     path = bench_file()
     t0 = time.perf_counter()
     want_keys, want_counts = host_count(path, K)
@@ -1212,8 +1563,19 @@ def main() -> int:
           host_count_s=round(time.perf_counter() - t0, 3),
           host_distinct=len(want_keys), host_total=int(want_counts.sum()))
     by_path = {"sort": end_to_end(path, want_keys, want_counts),
-               "table": table_end_to_end(path, want_keys, want_counts),
-               "wide": wide_end_to_end(path)}
+               "table": table_end_to_end(path, want_keys, want_counts)}
+    by_path["wide"], want31 = wide_end_to_end(path)
+    t0 = time.perf_counter()
+    by_path["lsm"], by_path["user"] = user_surface(
+        path, (want_keys, want_counts), want31, results)
+    phase("user_surface", seconds=round(time.perf_counter() - t0, 3))
+    check_errors(results)
+    for kname, r in results.items():
+        times = {k: v for k, v in r.items() if k not in ("max_abs_err",
+                                                         "extra")}
+        phase("kernel_time", name=kname,
+              **{k: v if v is None else round(v, 4)
+                 for k, v in (times | r.get("extra", {})).items()})
     # the contract's keys and the launches by path; the extras stay in the
     # kernel_time lines above
     print(json.dumps({"kernels": [

@@ -1,0 +1,208 @@
+"""The port's command line (`python -m tsxcount_tpu_torch count`), run in
+process with --platform cpu, against the JAX package's CLI and a naive
+count: dumps, exit codes, flags and the --stats-json keys.  Exact."""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tsxcount_tpu.cli import main as jax_main  # noqa: E402
+from tsxcount_tpu.utils.goldenfile import read_golden  # noqa: E402
+from tsxcount_tpu_torch.cli import main  # noqa: E402
+
+from tests.test_packer import naive_kmers, rand_reads  # noqa: E402
+
+CPU = ["--platform", "cpu"]
+
+
+@pytest.fixture()
+def fastq(tmp_path):
+    rng = np.random.default_rng(0)
+    reads = rand_reads(rng, 30, 10, 80)
+    path = tmp_path / "in.fastq"
+    with open(path, "w") as f:
+        for i, seq in enumerate(reads):
+            f.write(f"@r{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return path, reads
+
+
+def _golden(tmp_path, reads, k=9):
+    want = naive_kmers(reads, k)
+    golden = tmp_path / "golden.count"
+    with open(golden, "w") as f:
+        for km, c in want.items():
+            f.write(f"{km}\t{c}\n")
+    return golden, dict(want)
+
+
+def _count(path, *flags):
+    return ["count", "--input", str(path), "--k", "9", "--l", "12",
+            "--batch-words", "64", *flags]
+
+
+def test_cli_count_dump_check_roundtrip(fastq, tmp_path, capsys):
+    path, reads = fastq
+    golden, want = _golden(tmp_path, reads)
+    dump = tmp_path / "dump.count"
+    rc = main(_count(path, "--dump", str(dump), "--check", "--golden",
+                     str(golden), *CPU))
+    assert rc == 0
+    assert read_golden(dump) == want
+    err = capsys.readouterr().err
+    assert f"check: {len(want)}/{len(want)} matched, 0 mismatched" in err
+    assert "backend=sort shards=1" in err
+
+
+def test_cli_check_mismatch_exit_1(fastq, tmp_path):
+    path, reads = fastq
+    golden, want = _golden(tmp_path, reads)
+    km = next(iter(want))
+    golden.write_text(f"{km}\t{want[km] + 1}\n")
+    assert main(_count(path, "--check", "--golden", str(golden), *CPU)) == 1
+
+
+def test_cli_checkabort_exit_200(fastq, tmp_path):
+    path, reads = fastq
+    golden = tmp_path / "golden.count"
+    km = next(iter(naive_kmers(reads, 9)))
+    golden.write_text(f"{km}\t99999\n")
+    rc = main(_count(path, "--checkabort", "--golden", str(golden), *CPU))
+    assert rc == 200
+
+
+def test_cli_table_full_exit_42(fastq):
+    path, _ = fastq
+    rc = main(["count", "--input", str(path), "--k", "9", "--l", "3",
+               "--batch-words", "64", *CPU])
+    assert rc == 42
+
+
+@pytest.mark.parametrize("flags", [
+    ["--input", "/nonexistent/reads.fastq"],
+    ["--mode", "NOPE"],
+    ["--lsm-growth", "1"],
+], ids=str)
+def test_cli_bad_input_exit_2(fastq, flags, capsys):
+    """A missing file, an unknown mode and a ValueError of the counter."""
+    path, _ = fastq
+    assert main(_count(path, *flags, *CPU)) == 2  # the last --input wins
+    assert "ERROR:" in capsys.readouterr().err
+
+
+def test_cli_mode_alias_table(fastq, tmp_path):
+    path, reads = fastq
+    golden, _ = _golden(tmp_path, reads)
+    rc = main(["count", "--input", str(path), "--k", "9", "--l", "14",
+               "--batch-words", "64", "--mode", "TSX", "--check",
+               "--golden", str(golden), *CPU])
+    assert rc == 0
+
+
+def test_cli_help_runs():
+    with pytest.raises(SystemExit) as e:
+        main(["--help"])
+    assert e.value.code == 0
+    with pytest.raises(SystemExit) as e:
+        main(["count", "--help"])
+    assert e.value.code == 0
+
+
+@pytest.mark.parametrize("shards", ["0", "1"])
+def test_cli_shards_0_and_1_match_jax_cli(fastq, tmp_path, shards, capsys):
+    """Both run the single-GPU counter: the dump equals the JAX CLI's at
+    the same --shards (its --shards 1 is the sharded pipeline on one
+    device) and the naive count; --shards 1 prints its note."""
+    path, reads = fastq
+    ours, ref = tmp_path / "ours.count", tmp_path / "ref.count"
+    assert main(_count(path, "--shards", shards, "--dump", str(ours),
+                       *CPU)) == 0
+    note = "sharded pipeline comes with ROADMAP Queue 1 item 12"
+    assert (note in capsys.readouterr().err) == (shards == "1")
+    assert jax_main(_count(path, "--shards", shards, "--dump", str(ref),
+                           "--platform", "cpu")) == 0
+    assert read_golden(ours) == read_golden(ref) == dict(
+        naive_kmers(reads, 9))
+
+
+def test_cli_shards_2_refused(fastq, capsys):
+    path, _ = fastq
+    assert main(_count(path, "--shards", "2", *CPU)) == 2
+    assert "ROADMAP Queue 1 item 12" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("hash_first", ["off", "mix", "auto"])
+def test_cli_hash_first(fastq, tmp_path, hash_first):
+    path, reads = fastq
+    dump = tmp_path / "dump.count"
+    rc = main(_count(path, "--shards", "0", "--hash-first", hash_first,
+                     "--dump", str(dump), *CPU))
+    assert rc == 0
+    assert read_golden(dump) == dict(naive_kmers(reads, 9))
+
+
+@pytest.mark.parametrize("flags", [["--hash-first", "gf2"], ["--mix-prefix"]],
+                         ids=str)
+def test_cli_unported_options_refused(fastq, flags, capsys):
+    path, _ = fastq
+    assert main(_count(path, *flags, *CPU)) == 2
+    assert "Do not port" in capsys.readouterr().err
+
+
+def test_cli_routing_hash_ignored_with_warning(fastq, capsys):
+    path, _ = fastq
+    assert main(_count(path, "--routing-hash", "gf2", *CPU)) == 0
+    assert "warning: --routing-hash is ignored" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("mode", ["SERIAL", "TSX"])
+def test_cli_stats_json_superset_of_jax(fastq, mode, capsys):
+    """--stats-json prints stats() + wall_seconds + kmers_per_second: every
+    key of the JAX CLI's line (its plain counter, --shards 0), equal
+    totals."""
+    path, _ = fastq
+    flags = ("--shards", "0", "--mode", mode, "--stats-json")
+    assert main(_count(path, *flags, *CPU)) == 0
+    ours = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert jax_main(_count(path, *flags, "--platform", "cpu")) == 0
+    ref = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(ref) <= set(ours), set(ref) - set(ours)
+    for key in ("total_kmers", "distinct_kmers", "windows", "reads",
+                "backend"):
+        assert ours[key] == ref[key], key
+    assert ours["wall_seconds"] > 0 and ours["device"] == "cpu"
+    assert ours["memory_estimate_mb"] > 0  # the built counter's estimate
+
+
+@pytest.mark.parametrize("flags", [
+    ["--canonical"], ["--hp-collapse"], ["--lsm", "--lsm-growth", "2"],
+    ["--canonical", "--mode", "CAS"],
+], ids=str)
+def test_cli_options_match_jax_cli(fastq, tmp_path, flags):
+    path, _ = fastq
+    ours, ref = tmp_path / "ours.count", tmp_path / "ref.count"
+    common = ("--shards", "0", "--merge-every", "1", *flags)
+    assert main(_count(path, *common, "--dump", str(ours), *CPU)) == 0
+    assert jax_main(_count(path, *common, "--dump", str(ref),
+                           "--platform", "cpu")) == 0
+    assert read_golden(ours) == read_golden(ref)
+
+
+def test_cli_save_load_state_and_progress(fastq, tmp_path, capsys):
+    """--save-state writes a checkpoint that --load-state resumes (here:
+    the same file twice, so every count doubles); --progress 1 prints a
+    line a batch; --profile writes a trace."""
+    path, reads = fastq
+    state = tmp_path / "s.npz"
+    assert main(_count(path, "--save-state", str(state), "--progress", "1",
+                       "--profile", str(tmp_path / "prof"), *CPU)) == 0
+    err = capsys.readouterr().err
+    assert "progress: batches=1 " in err and f"saved state to {state}" in err
+    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    dump = tmp_path / "dump.count"
+    assert main(_count(path, "--load-state", str(state), "--dump",
+                       str(dump), *CPU)) == 0
+    assert read_golden(dump) == {km: 2 * c for km, c in
+                                 naive_kmers(reads, 9).items()}

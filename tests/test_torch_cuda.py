@@ -491,3 +491,76 @@ def test_real_prefix_collision_recounts_on_card(dev, tmp_path, monkeypatch):
     want = Counter(r[i : i + k] for r in reads
                    for i in range(len(r) - k + 1))
     assert c.to_dict() == dict(want)
+
+
+@pytest.mark.parametrize("k,big,small", [(14, 1 << 18, 1 << 17),
+                                         (127, 1 << 16, 1 << 15)])
+def test_absorb_shape_kernel_and_store(dev, k, big, small):
+    """Kernel 3 at the LSM absorb's shape (a store run of one level into
+    the store run of the next, both with the invalid tail) against its
+    plain version, and CountStore.absorb on the card against the CPU."""
+    from tsxcount_tpu_torch.core.store import CountStore
+
+    spec = KmerSpec(k)
+    states = []
+    for d in (dev, "cpu"):
+        rng = np.random.default_rng(k)  # the same data on both devices
+        pool = rng.integers(0, 2**32, size=(big, spec.lanes),
+                            dtype=np.uint64).astype(np.uint32)
+        pool[:, -1] &= np.uint32(spec.top_lane_mask)
+        # half of the smaller level's keys are in the larger one too: their
+        # counts must add
+        key_sets = (pool[: big // 2],
+                    np.concatenate([pool[: small // 4],
+                                    pool[big // 2 : big // 2 + small // 4]]))
+        stores = [CountStore(spec, c, d) for c in (big, small)]
+        sts = []
+        for store, cap, keys in zip(stores, (big, small), key_sets):
+            keys = np.unique(keys, axis=0)
+            n = len(keys)
+            full = np.zeros((cap, spec.lanes), np.uint32)
+            full[:n] = keys[np.lexsort(keys.T)]
+            digits = np.zeros((cap, 3), np.int32)
+            digits[:n, 0] = rng.integers(1, 1 << 20, n)
+            digits[:n, 1] = rng.integers(0, 1 << 20, n)
+            sts.append(store.state_from_reference(dict(
+                keys=full, digits=digits, used=np.arange(cap) < n,
+                n=np.int32(n), overflowed=np.bool_(False))))
+        if not states:  # the card: the kernel against its plain version
+            run_a = tuple(sts[0].keys.unbind(0)) + (sts[0].counts,)
+            run_b = tuple(sts[1].keys.unbind(0)) + (sts[1].counts,)
+            inv = stores[0].inv_min
+            got, g_runs, g_valid = merge_dedupe_sorted(
+                run_a, run_b, stores[0].n_ops, inv)
+            want, w_runs, w_valid = merge_dedupe_sorted_plain(
+                run_a, run_b, stores[0].n_ops, inv)
+            assert (int(g_runs), int(g_valid)) == (int(w_runs), int(w_valid))
+            for g, w in zip(got, want):
+                assert torch.equal(g[: int(w_runs)], w[: int(w_runs)])
+        states.append(stores[0].state_to_reference(stores[0].absorb(*sts)))
+    n = int(states[0]["n"])
+    assert big // 2 < n < big // 2 + small // 2  # the runs overlap in part
+    for f, v in states[0].items():
+        assert np.array_equal(v, states[1][f]), f
+
+
+def test_lsm_counter_on_card_matches_cpu_levels(dev):
+    """A count whose LSM cascades run during the stream: every level's
+    state on the card equals the CPU's word for word, and so do the
+    collapsed exports."""
+    rng = np.random.default_rng(8)
+    reads = ["".join(rng.choice(list("ACGTN"), size=rng.integers(14, 400)))
+             for _ in range(600)]
+    out = []
+    for d in (dev, "cpu"):
+        c = KmerCounter(k=14, l=16, batch_words=256, merge_every=1, lsm=True,
+                        lsm_growth=2, device=d)
+        c.add_reads(reads)
+        c.finish()
+        assert c.lsm and c.store.absorbs >= 2
+        out.append(([lv.state_to_reference(st) for lv, st in
+                     zip(c.store.levels, c.state)], c.to_dict()))
+    for lv_card, lv_cpu in zip(out[0][0], out[1][0]):
+        for f in lv_card:
+            assert np.array_equal(lv_card[f], lv_cpu[f]), f
+    assert out[0][1] == out[1][1]

@@ -1,6 +1,7 @@
 """Guards of the port: no JAX anywhere in it, an explicit device with no
-silent CPU fallback, loud refusals for what it does not cover yet, and the
-kernel build's command line.  Pure checks, no tolerances involved."""
+silent CPU fallback (counter and command line), loud refusals for what it
+does not port, and the kernel build's command line.  Pure checks, no
+tolerances involved."""
 
 import ast
 import pathlib
@@ -75,11 +76,7 @@ def test_store_and_table_default_to_the_card(make):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(canonical=True), dict(backend="table", canonical=True),
-    dict(lsm=True), dict(hash_first="gf2"), dict(mix_prefix=True),
-    dict(collapse_homopolymers=True),
-    dict(lsm_growth=4), dict(progress_every=1),
-    dict(backend="table", progress_every=5),
+    dict(hash_first="gf2"), dict(mix_prefix=True),
 ], ids=str)
 def test_out_of_slice_options_raise(kw):
     args = dict(k=14, device="cpu") | kw
@@ -123,8 +120,8 @@ def test_in_slice_options_accepted():
 @pytest.mark.parametrize("backend", ["sort", "table"])
 def test_reference_keywords_accepted_at_defaults(backend):
     """lsm_growth and progress_every, keywords of the JAX package's
-    counter, are taken at their defaults, by name and in the JAX package's
-    positions (after lsm, and after collapse_homopolymers)."""
+    counter, are taken by name and in the JAX package's positions (after
+    lsm, and after collapse_homopolymers)."""
     for progress_every in (0, -1):  # the JAX package takes <= 0 as off
         c = KmerCounter(k=14, l=8, backend=backend, lsm_growth=8,
                         progress_every=progress_every, device="cpu")
@@ -133,8 +130,26 @@ def test_reference_keywords_accepted_at_defaults(backend):
             None, 8, 0, 3, 0, False)
     pos = KmerCounter(*args, 0, device="cpu")
     assert pos.threads == 1 and pos.prefetch_depth == 3
-    with pytest.raises(NotImplementedError, match="progress_every=1"):
-        KmerCounter(*args, 1, device="cpu")
+    assert pos.progress_every == 0 and pos.lsm_growth == 8
+    assert KmerCounter(*args, 1, device="cpu").progress_every == 1
+
+
+def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path, capsys):
+    """Without a GPU the command line stops with an ERROR line unless
+    --platform cpu is given; it never counts on the CPU by itself."""
+    from tsxcount_tpu_torch.cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default platform is valid here")
+    path = tmp_path / "r.fastq"
+    path.write_text("@r\nACGTACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIIIIIII\n")
+    for platform in ([], ["--platform", "cuda"], ["--platform", "gpu"]):
+        assert main(["count", "--input", str(path), "--l", "8",
+                     *platform]) != 0
+        err = capsys.readouterr().err
+        assert "ERROR:" in err and "--platform cpu" in err
+    assert main(["count", "--input", str(path), "--l", "8",
+                 "--platform", "cpu"]) == 0
 
 
 def test_wrappers_refuse_other_devices():

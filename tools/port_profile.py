@@ -68,25 +68,6 @@ REPO = Path(__file__).resolve().parent.parent
 HOST_REPS = 50  # wrapper calls per host-time figure
 
 
-def device_busy_us(prof) -> float:
-    """Union of the CUDA kernel/memcpy intervals in the trace (us)."""
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def traced(name: str, fn, out: Path, trace: bool = False) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -95,6 +76,8 @@ def traced(name: str, fn, out: Path, trace: bool = False) -> None:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    from tsxcount_tpu_torch.utils.profiling import device_busy_us
+
     busy = device_busy_us(prof) / 1e6
     table = prof.key_averages().table(sort_by="device_time_total",
                                       row_limit=60)

@@ -3,16 +3,23 @@ CUDA kernels for one NVIDIA Hopper GPU (H100).
 
 The port of `tsxcount_tpu` (JAX/Pallas on a TPU), which stays the reference
 it is tested against.  This package imports neither JAX nor `tsxcount_tpu`.
-It covers the sort backend through the flat count store for k <= 256
-(from k = 113 through the lane-mix bijection) and the quotient-table
-backend for k <= 127; see ROADMAP.md for what is still to come.
+It covers the single-GPU surface of the JAX package: the sort backend for
+k <= 256 (from k = 113 through the lane-mix bijection) with the flat or the
+LSM count store, the quotient-table backend for k <= 127, canonical
+counting, homopolymer collapse, progress lines, checkpoints that load in
+either package, a device-memory preflight and the command line
+(`python -m tsxcount_tpu_torch count`).  Multi-GPU sharding is not ported
+yet (ROADMAP.md Queue 1 item 12).
 
 Public surface:
     KmerSpec                   — k-mer geometry (lanes, masks)
     KmerCounter                — end-to-end streaming counter (file -> counts)
     CountStore                 — sorted-unique device count table
+    LSMStore                   — geometric cascade of CountStores
     QuotientTable              — jellyfish-style reprobing hash table
     GF2Hash                    — bijective GF(2) matrix hash of k-mers
+    canonicalize               — min(kmer, reverse complement) of key rows
+    save_counter / load_counter — .npz checkpoints (JAX package's format)
     read_golden / write_golden — `kmer\tcount` TSV IO (reference .count format)
 """
 
@@ -25,9 +32,12 @@ from tsxcount_tpu_torch.utils.sequence import (
 )
 from tsxcount_tpu_torch.utils.goldenfile import read_golden, write_golden
 from tsxcount_tpu_torch.core.store import CountStore
+from tsxcount_tpu_torch.core.lsm import LSMStore
 from tsxcount_tpu_torch.core.table import QuotientTable
+from tsxcount_tpu_torch.ops.canonical import canonicalize
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 from tsxcount_tpu_torch.core.counter import KmerCounter
+from tsxcount_tpu_torch.core.checkpoint import load_counter, save_counter
 
 __version__ = "0.1.0"
 
@@ -35,8 +45,12 @@ __all__ = [
     "KmerSpec",
     "KmerCounter",
     "CountStore",
+    "LSMStore",
     "QuotientTable",
     "GF2Hash",
+    "canonicalize",
+    "save_counter",
+    "load_counter",
     "encode_bases",
     "decode_bases",
     "kmer_to_string",

@@ -1,0 +1,153 @@
+"""Count-state checkpoints (save and resume), in the JAX package's format.
+
+One .npz file holds a JSON `meta` record, the state arrays as `state_*`
+(the JAX package's StoreState or TableState fields, converted by
+`state_to_reference` / `state_from_reference`) and the table hash's
+`hash_matrix` / `hash_inverse`.  The keys, dtypes and layouts are those of
+`tsxcount_tpu/core/checkpoint.py` format 3, so a file written by either
+package loads in the other.  An LSM counter saves its collapsed top level.
+The port writes the archive without compression (np.load reads either),
+so saving a GB-sized state costs the disk write and no zlib pass on one
+host core; the state is converted to and from the JAX layout on the
+counter's device.
+
+Refused loudly: sharded files (`n_shards` >= 1; multi-GPU is ROADMAP
+Queue 1 item 12) and states of stores the port does not build (the
+`mix_prefix` extended keys and the `hash_first="gf2"` image, on ROADMAP's
+"Do not port" list).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tsxcount_tpu_torch.io.packer import PackStats
+from tsxcount_tpu_torch.ops.gf2 import GF2Hash
+
+FORMAT_VERSION = 3
+
+
+def save_counter(counter, path: str | Path) -> None:
+    """Serialize a KmerCounter (either backend, flat or LSM) to .npz."""
+    meta = {
+        "format": FORMAT_VERSION,
+        "k": counter.spec.k,
+        "l": counter.l,
+        "s": counter.s,
+        "backend": counter.backend,
+        "n_policy": counter.n_policy,
+        "identity_hash": counter.identity_hash,
+        "canonical": counter.canonical,
+        "collapse_hp": counter.collapse_hp,
+        "hash_first": counter.hash_first,
+        "mix_prefix": False,
+        "stats": dataclasses.asdict(counter.packer.stats),
+        "batches_processed": counter.batches_processed,
+        "lsm": counter.lsm,
+        "lsm_growth": counter.lsm_growth,
+        "merge_every": counter.merge_every,
+        "n_shards": 0,  # 0 = unsharded
+        "routing_hash": "gf2",  # the JAX package's value for unsharded
+        "max_reprobes": (counter.table.max_reprobes
+                         if counter.backend == "table" else 0),
+    }
+    if counter.backend == "table":
+        ref = counter.table.state_to_reference(counter.state)
+        hash_fn = counter.hash_fn
+    else:
+        counter._flush_pending()
+        counter._collapse_if_lsm()  # the LSM: everything in the top level
+        ref = counter.store.state_to_reference(counter.state)
+        # the sort backend hashes nothing, but the JAX loader reads these
+        hash_fn = GF2Hash(counter.spec, seed=counter.hash_seed,
+                          identity=counter.identity_hash)
+    arrays = {f"state_{name}": val for name, val in ref.items()}
+    arrays["hash_matrix"] = hash_fn.matrix
+    arrays["hash_inverse"] = hash_fn.inverse
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def _state_array(name: str, data) -> np.ndarray:
+    """One state field, migrating old table layouts: files that stored
+    keys/digits/used as three arrays, or the combined rows as [slots, C],
+    become the flat column-major `slots` array."""
+    key = f"state_{name}"
+    if key in data:
+        arr = data[key]
+        if name == "slots" and arr.ndim == 2:
+            arr = np.ascontiguousarray(arr.T).reshape(-1)
+        return arr
+    if name == "slots" and "state_keys" in data:
+        keys = np.asarray(data["state_keys"])
+        digits = np.asarray(data["state_digits"]).view(np.uint32)
+        used = np.asarray(data["state_used"]).astype(np.uint32)[:, None]
+        return np.ascontiguousarray(
+            np.concatenate([keys, digits, used], axis=1).T
+        ).reshape(-1)
+    raise KeyError(f"checkpoint missing state field {name}")
+
+
+def _refuse(meta) -> None:
+    if meta.get("n_shards", 0):
+        raise NotImplementedError(
+            f"checkpoint of a sharded counter (n_shards="
+            f"{meta['n_shards']}): multi-GPU is not ported to "
+            f"tsxcount_tpu_torch yet (ROADMAP.md Queue 1 item 12); load it "
+            f"with tsxcount_tpu")
+    if meta.get("mix_prefix", False):
+        raise NotImplementedError(
+            "checkpoint with mix_prefix=True: the extended-key store is on "
+            "ROADMAP.md's 'Do not port' list; load it with tsxcount_tpu")
+    # files before format 3's "mix" wrote True for the GF(2) image
+    if meta.get("hash_first", False) in (True, "gf2"):
+        raise NotImplementedError(
+            "checkpoint with hash_first='gf2' (or True, which older files "
+            "wrote for it): the GF(2) store image is on ROADMAP.md's 'Do "
+            "not port' list; load it with tsxcount_tpu")
+
+
+def load_counter(path: str | Path, batch_words: int = 1 << 16,
+                 device: str | torch.device = "cuda"):
+    """Rebuild a KmerCounter from an .npz checkpoint, ready to resume.
+
+    The file's shape (backend, k, l, options) wins; only the ingest batch
+    size, which is not part of the state, and the device are the caller's.
+    """
+    from tsxcount_tpu_torch.core.counter import KmerCounter
+
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["meta"]))
+        if meta["format"] > FORMAT_VERSION:
+            raise ValueError(f"unsupported checkpoint format {meta['format']}")
+        _refuse(meta)
+        counter = KmerCounter(
+            k=meta["k"], l=meta["l"], s=meta["s"], backend=meta["backend"],
+            batch_words=batch_words, n_policy=meta["n_policy"],
+            identity_hash=meta["identity_hash"],
+            canonical=meta.get("canonical", False),
+            collapse_homopolymers=meta.get("collapse_hp", True),
+            hash_first=meta.get("hash_first", False),
+            lsm=meta.get("lsm", False),
+            lsm_growth=meta.get("lsm_growth", 8),
+            merge_every=meta.get("merge_every", 4),
+            max_reprobes=meta.get("max_reprobes") or 64,
+            device=device,
+        )
+        if counter.backend == "table":
+            # the hash matrix defines the table's layout: use the file's
+            counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
+            names = ("slots", "n", "spilled", "probe_hist")
+            counter.load_table_state(
+                {name: _state_array(name, data) for name in names})
+        else:
+            names = ("keys", "digits", "used", "n", "overflowed")
+            counter.load_store_state(
+                {name: _state_array(name, data) for name in names})
+        counter.packer.stats = PackStats(**meta["stats"])
+        counter.batches_processed = meta["batches_processed"]
+    return counter

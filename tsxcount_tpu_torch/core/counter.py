@@ -5,7 +5,8 @@ fixed-shape batch through the device: window extraction and an exact batch
 histogram (sort + kernel 1), then, by backend (the reference's --mode
 strings map onto the two):
   * "sort": every `merge_every` batches one store merge (kernel 2's merge
-    tree, then kernel 3 into the sorted store, core/store.py).  From 8
+    tree, then kernel 3 into the sorted store, core/store.py; into the
+    LSM store's L0 where its rule engages, core/lsm.py).  From 8
     lanes (k >= 113), or with hash_first, each batch's keys first go
     through the lane-mix bijection (ops/mix.py, one kernel): the store
     holds the images, the dedupe sorts only their >= 64-bit prefix, and a
@@ -19,6 +20,12 @@ Parsing, packing and the host-to-device copy run on a producer thread
 queues without waiting.  The sort backend synchronises once per file or
 query, the table backend also once per batch and per round (the counts
 that size the rounds).
+
+Canonical mode folds each window to min(kmer, revcomp) after extraction
+(ops/canonical.py); homopolymer collapse splices long all-X runs at ingest
+and adds the elided counts back wherever counts leave the store
+(HpBonusMixin).  Both, the LSM rule and the store layouts are the JAX
+package's, so checkpoints (core/checkpoint.py) load in either package.
 
 The device is explicit: "cuda" (the default) raises where no GPU is
 present, and nothing falls back to the CPU unless asked for.
@@ -38,10 +45,12 @@ import torch
 
 from tsxcount_tpu_torch._build import resolve_device
 from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, counts_to_int
+from tsxcount_tpu_torch.core.lsm import LSMStore
 from tsxcount_tpu_torch.core.store import CountStore
 from tsxcount_tpu_torch.core.table import QuotientTable
 from tsxcount_tpu_torch.io.fastx import read_fastx
 from tsxcount_tpu_torch.io.packer import PackedBatch, ReadPacker, add_stats
+from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
 from tsxcount_tpu_torch.ops.count import UniqueCounts, count_unique
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
 from tsxcount_tpu_torch.ops.mix import LaneMixBijection
@@ -117,7 +126,67 @@ class PrefixCollision(RuntimeError):
     count_file."""
 
 
-class KmerCounter:
+class IngestProgressMixin:
+    """One stderr progress line every `progress_every` batches (off at 0)."""
+
+    progress_every: int = 0
+    _progress_t0 = None
+    _progress_last = 0
+
+    def _maybe_progress(self, stats_fn=None) -> None:
+        if not self.progress_every:
+            return
+        if self._progress_t0 is None:
+            self._progress_t0 = time.perf_counter()
+        if self.batches_processed - self._progress_last < self.progress_every:
+            return
+        self._progress_last = self.batches_processed
+        st = stats_fn() if stats_fn is not None else self.packer.stats
+        dt = max(1e-9, time.perf_counter() - self._progress_t0)
+        print(
+            f"progress: batches={self.batches_processed} reads={st.reads} "
+            f"windows={st.windows} ({st.windows / dt / 1e6:.1f}M win/s) "
+            f"packed_mb={st.packed_words * 4 / 2**20:.0f}",
+            file=sys.stderr, flush=True,
+        )
+
+
+class HpBonusMixin:
+    """Read-time homopolymer-collapse bonus.
+
+    With collapse on, the ingest splices all-c runs down to 2k-2 bases and
+    owes `stats.hp_bonus[c]` occurrences of the all-c k-mer (io/packer.py
+    collapse_homopolymers).  The spliced run keeps k-1 all-c windows, so
+    the key is in the store; the owed count is added on the host wherever
+    counts leave the store (get_counts, items, check).  No device work."""
+
+    def _hp_owed_emit(self) -> dict[str, int]:
+        """Owed bonus by the STORED k-mer string (the canonical one in
+        canonical mode): the export's view."""
+        k = self.spec.k
+        out: dict[str, int] = {}
+        for c, b in enumerate(self.packer.stats.hp_bonus):
+            if b:
+                s = "ACGT"[min(c, 3 - c) if self.canonical else c] * k
+                out[s] = out.get(s, 0) + int(b)
+        return out
+
+    def _hp_owed_query(self) -> dict[str, int]:
+        """Owed bonus by every query spelling: in canonical mode the
+        all-T query sees the all-A bonus and all-G the all-C one."""
+        emit = self._hp_owed_emit()
+        if not emit or not self.canonical:
+            return emit
+        k = self.spec.k
+        out = dict(emit)
+        for c in range(4):
+            rep = "ACGT"[min(c, 3 - c)] * k
+            if rep in emit:
+                out["ACGT"[c] * k] = emit[rep]
+        return out
+
+
+class KmerCounter(HpBonusMixin, IngestProgressMixin):
     def __init__(
         self,
         k: int,
@@ -147,19 +216,10 @@ class KmerCounter:
         if backend not in ("sort", "table"):
             raise ValueError(f"backend must be 'sort', 'table' or a "
                              f"reference mode {sorted(MODE_TO_BACKEND)}")
-        if canonical:
-            raise _not_ported("canonical=True", "Queue 1 item 9")
-        if lsm:
-            raise _not_ported("lsm=True", "Queue 1 item 8")
-        if lsm_growth != 8:
-            raise _not_ported(f"lsm_growth={lsm_growth}", "Queue 1 item 8")
         if mix_prefix:
             raise _not_ported("mix_prefix", "the 'Do not port' list")
-        if collapse_homopolymers:
-            raise _not_ported("collapse_homopolymers=True", "Queue 1 item 13")
-        if progress_every > 0:  # as in the JAX package, <= 0 is off
-            raise _not_ported(f"progress_every={progress_every}",
-                              "Queue 1 item 13")
+        if lsm_growth < 2:
+            raise ValueError("lsm_growth must be >= 2")
         self.spec = KmerSpec(k)
         # hash_first: False or "mix" (True aliases it): the store holds the
         # lane-mix images and the dedupe sorts their uniform prefix; None
@@ -194,12 +254,31 @@ class KmerCounter:
         self.seed = seed
         self.threads = max(1, threads)
         self.prefetch_depth = max(1, prefetch_depth)
-        # lsm=None uses the flat store: counts are exact either way, and the
-        # JAX package's auto rule for the LSM store is a TPU measurement
+        self.canonical = canonical
+        self.collapse_hp = collapse_homopolymers
+        # the table's hash; a checkpoint writes its matrices on either
+        # backend, as the JAX package does
+        self.hash_seed = hash_seed
+        self.identity_hash = identity_hash
         self.lsm = False
+        self.lsm_growth = lsm_growth
         if backend == "sort":
             self.merge_every = max(1, merge_every)
-            self.store = CountStore(self.spec, 1 << l, self.device)
+            capacity = 1 << l
+            flush = self.merge_every * self.batch.positions
+            # the JAX package's rule: the LSM pays once the flat store's
+            # O(capacity) pass per flush costs more than the cascade's
+            # amortised work, capacity * (growth-1) > growth^2 * flush;
+            # None applies it, True/False force it, and a table no larger
+            # than L0 (flush * growth) stays flat
+            use_lsm = (capacity * (lsm_growth - 1) > lsm_growth ** 2 * flush
+                       if lsm is None else lsm)
+            if use_lsm and capacity > flush * lsm_growth:
+                self.store = LSMStore(self.spec, capacity, flush,
+                                      growth=lsm_growth, device=self.device)
+                self.lsm = True
+            else:
+                self.store = CountStore(self.spec, capacity, self.device)
         else:
             self.merge_every = 1
             self.hash_fn = GF2Hash(self.spec, seed=hash_seed,
@@ -207,24 +286,35 @@ class KmerCounter:
             self.table = QuotientTable(self.spec, l, self.hash_fn,
                                        max_reprobes=max_reprobes,
                                        device=self.device)
+        self.progress_every = max(0, progress_every)
         self.reset()
 
     def reset(self) -> None:
         """Clear all counts and ingest stats."""
-        self.state = (self.store if self.backend == "sort"
-                      else self.table).init_state()
+        if self.backend == "sort":
+            self.state = self.store.init_state()
+            if self.lsm:
+                self.store.reset_schedule()
+        else:
+            self.state = self.table.init_state()
         self._pending: list[UniqueCounts] = []
         # the batches' prefix-collision flags, ORed on the device
         self._collided: torch.Tensor | None = None
-        self.packer = ReadPacker(self.batch, n_policy=self.n_policy,
-                                 seed=self.seed)
+        self.packer = self._new_packer()
         self.batches_processed = 0
         self.elapsed = 0.0
+        self._progress_t0 = None
+        self._progress_last = 0
+
+    def _new_packer(self) -> ReadPacker:
+        return ReadPacker(self.batch, n_policy=self.n_policy, seed=self.seed,
+                          collapse=self.collapse_hp)
 
     def load_store_state(self, ref) -> None:
         """Replace the counts with a store state from the JAX package
-        (`tsxcount_tpu` KmerCounter.state's fields as numpy arrays), so that
-        a count started there continues here.  Ingest stats are kept."""
+        (`tsxcount_tpu` KmerCounter.state's fields as numpy arrays; with
+        the LSM store, its collapsed top level), so that a count started
+        there continues here.  Ingest stats are kept."""
         self._pending = []
         self.state = self.store.state_from_reference(ref)
 
@@ -251,8 +341,7 @@ class KmerCounter:
             return
         self.batch = new_batch
         stats = self.packer.stats
-        self.packer = ReadPacker(self.batch, n_policy=self.n_policy,
-                                 seed=self.seed)
+        self.packer = self._new_packer()
         self.packer.stats = stats
 
     # --- ingestion ---
@@ -265,6 +354,8 @@ class KmerCounter:
     def _dedupe(self, buf: torch.Tensor) -> UniqueCounts:
         batch = self.batch
         cols = extract_kmer_cols(buf[: batch.total_words], batch)
+        if self.canonical:  # before the lane mix, as in the JAX package
+            cols = canonicalize_cols(cols, self.spec)
         valid = intervals_to_valid(buf[batch.total_words :], batch)
         if self.key_map is None:
             return count_unique(cols, valid, self.spec)
@@ -321,7 +412,8 @@ class KmerCounter:
                 st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
             r += 1
 
-    def _consume_bufs(self, bufs: Iterable[torch.Tensor]) -> None:
+    def _consume_bufs(self, bufs: Iterable[torch.Tensor],
+                      stats_fn=None) -> None:
         t0 = time.perf_counter()
         for buf in bufs:
             if self.backend == "table":
@@ -331,6 +423,7 @@ class KmerCounter:
                 if len(self._pending) >= self.merge_every:
                     self._flush_pending()
             self.batches_processed += 1
+            self._maybe_progress(stats_fn)
         self.elapsed += time.perf_counter() - t0
 
     def _consume(self, batches: Iterator[PackedBatch]) -> None:
@@ -351,6 +444,10 @@ class KmerCounter:
         self._flush_pending()
         self._check_capacity()
 
+    def _collapse_if_lsm(self) -> None:
+        if self.backend == "sort" and self.lsm:
+            self.state = self.store.collapse(self.state)
+
     def _check_capacity(self) -> None:
         # the one host synchronisation per file
         if self.backend == "table":
@@ -362,17 +459,20 @@ class KmerCounter:
                     f"max_reprobes"
                 )
             return
-        flags = [self.state.overflowed]
+        # every level's overflow flag and the collision flag: one read
+        states = self.state if self.lsm else [self.state]
+        flags = [s.overflowed for s in states]
+        n_over = len(flags)
         if self._collided is not None:
             flags.append(self._collided)
         self._collided = None
         flags = torch.stack(flags).cpu().tolist()
-        if flags[0]:
+        if any(flags[:n_over]):
             raise TableFull(
                 f"distinct kmers exceeded capacity 2^{self.l}; rerun with "
                 f"a larger l"
             )
-        if any(flags[1:]):
+        if any(flags[n_over:]):
             raise PrefixCollision(PrefixCollision.__doc__)
 
     def count_file(self, path: str | Path,
@@ -414,9 +514,11 @@ class KmerCounter:
         if use_native:
             reader = NativeFileReader(path, self.batch,
                                       n_policy=self.n_policy,
-                                      seed=self.seed, threads=self.threads)
+                                      seed=self.seed, threads=self.threads,
+                                      collapse=self.collapse_hp)
             self._consume_bufs(
-                prefetch(iter(reader), self._put, depth=self.prefetch_depth)
+                prefetch(iter(reader), self._put, depth=self.prefetch_depth),
+                stats_fn=reader.live_stats,
             )
             self.packer.stats = add_stats(self.packer.stats, reader.stats)
         else:
@@ -438,11 +540,13 @@ class KmerCounter:
     @property
     def distinct(self) -> int:
         self._flush_pending()
-        return int(self.state.n)
+        self._collapse_if_lsm()
+        return int((self.state[-1] if self.lsm else self.state).n)
 
     @property
     def total_kmers(self) -> int:
-        return self.packer.stats.windows
+        st = self.packer.stats
+        return st.windows + sum(st.hp_bonus)
 
     def get_counts(self, kmers: list[str]) -> list[int]:
         """Exact counts for a list of kmer strings (0 if absent)."""
@@ -450,6 +554,9 @@ class KmerCounter:
             return []
         self._flush_pending()
         keys = strings_to_kmers(kmers, self.spec)
+        if self.canonical:
+            keys = canonicalize(torch.from_numpy(keys.view(np.int32)),
+                                self.spec).numpy().view(np.uint32)
         if self.key_map is not None:  # the store holds the images
             keys = self.key_map.apply_host(keys)
         keys = keys.view(np.int32)
@@ -465,19 +572,30 @@ class KmerCounter:
             for (d0, d1, d2), ok in zip(digits.cpu().tolist(),
                                         found.cpu().tolist()):
                 out.append(counts_to_int(d0, d1, d2) if ok else 0)
+        owed = self._hp_owed_query()
+        if owed:
+            out = [c + owed.get(s, 0) for s, c in zip(kmers, out)]
         return out
 
     def items(self) -> Iterator[tuple[str, int]]:
         """Stream (kmer string, count) for every stored k-mer: ascending
-        (sort backend) or in slot order (table backend)."""
+        (sort backend) or in slot order (table backend), with any owed
+        homopolymer bonus added."""
         self._flush_pending()
+        self._collapse_if_lsm()
         if self.backend == "sort":
             keys, counts, _ = self.store.to_host(self.state, self.key_map)
         else:
             keys, counts, _ = self.table.to_host(self.state)
+        owed = self._hp_owed_emit()
         for kmer_str, cnt in zip(kmers_to_strings(keys, self.spec),
                                  counts.tolist()):
-            yield kmer_str, cnt
+            yield kmer_str, cnt + owed.pop(kmer_str, 0)
+        # owed keys the store never saw (bonus set without its runs, e.g.
+        # a resumed partial state) are still owed
+        for kmer_str, cnt in sorted(owed.items()):
+            if cnt:
+                yield kmer_str, cnt
 
     def to_dict(self) -> dict[str, int]:
         return dict(self.items())

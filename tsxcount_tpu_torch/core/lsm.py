@@ -1,0 +1,143 @@
+"""Log-structured (LSM) multi-level count store for long streams.
+
+The flat CountStore pays an O(capacity) merge every `merge_every` batches;
+once the table is much larger than a flush, that pass over mostly idle rows
+dominates.  The LSM layout keeps a geometric cascade of stores L0..Lm
+(|L_{i+1}| = growth * |L_i|, the top one the full capacity): each flush
+folds into L0, and level i is absorbed into level i+1 (CountStore.absorb,
+one kernel-3 merge with the counts summed) every growth^(i+1) flushes
+(L0 holds `growth` flushes).  Absorbing is an exact sorted
+merge, so counts stay exact.
+
+The cascade schedule is host-side integer math (no device read), and it is
+the JAX package's (`tsxcount_tpu/core/lsm.py`), so both packages hold the
+same level states after every flush.  Reads either sum the levels
+(`lookup`) or first `collapse()` everything into the top level.
+
+The state is a list of CountStore states, one a level; the methods carry
+CountStore's names so that the counter's sort backend calls one interface.
+merge_stacked and collapse update that list in place (and return it), so
+a level's old tensors go as soon as its new state exists: a cascade never
+holds two copies of the levels on the device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tsxcount_tpu_torch.config import KmerSpec
+from tsxcount_tpu_torch.core.store import CountStore, StoreState
+
+
+class LSMStore:
+    """Geometric cascade of CountStores with exact cross-level merges.
+
+    capacity: distinct keys of the top level.  flush_rows: rows of one
+    flush (merge_every * positions).  L0 holds `growth` flushes
+    (flush_rows * growth rows), as the JAX counter builds it; the schedule
+    counts flushes, not rows, so a short first flush changes nothing (the
+    JAX counter pads every flush to merge_every histograms instead).
+    """
+
+    def __init__(self, spec: KmerSpec, capacity: int, flush_rows: int,
+                 growth: int = 8, device: str | torch.device = "cuda"):
+        if growth < 2:
+            raise ValueError("growth must be >= 2")
+        self.spec = spec
+        self.growth = int(growth)
+        self.levels = [CountStore(spec, c, device) for c in
+                       self.level_capacities(capacity, flush_rows, growth)]
+        self.n_ops = self.levels[0].n_ops
+        self._flushes = 0  # L0 merges, which drive the cascade
+        self.absorbs = 0   # absorb merges run (for reports)
+
+    @staticmethod
+    def level_capacities(capacity: int, flush_rows: int, growth: int
+                         ) -> list[int]:
+        """Rows of each level: L0 = flush_rows * growth, each next one
+        `growth` times larger, the top one `capacity`."""
+        caps = [int(flush_rows) * growth]
+        while caps[-1] * growth < capacity:
+            caps.append(caps[-1] * growth)
+        return caps + [int(capacity)]
+
+    def init_state(self) -> list[StoreState]:
+        return [lvl.init_state() for lvl in self.levels]
+
+    def reset_schedule(self) -> None:
+        """Restart the cascade counter (a fresh state on the same store)."""
+        self._flushes = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.levels[-1].capacity
+
+    def _absorb(self, states: list, i: int) -> None:
+        """Level i into level i+1; level i starts empty again."""
+        states[i + 1] = self.levels[i + 1].absorb(states[i + 1], states[i])
+        states[i] = self.levels[i].init_state()
+        self.absorbs += 1
+
+    def merge_stacked(self, states: list[StoreState], ukeys: torch.Tensor,
+                      ucounts: torch.Tensor, uvalid: torch.Tensor
+                      ) -> list[StoreState]:
+        """Fold R batch histograms into L0, then cascade full levels
+        upward: level i absorbs into level i+1 every growth^(i+1) flushes,
+        checked bottom-up (carry-style), so level i+1 takes at most
+        `growth` images of level i between its own cascades.  No host
+        synchronisation.  Updates `states` in place."""
+        states[0] = self.levels[0].merge_stacked(states[0], ukeys, ucounts,
+                                                 uvalid)
+        self._flushes += 1
+        period = self.growth
+        for i in range(len(self.levels) - 1):
+            if self._flushes % period:
+                break  # higher levels cascade only when lower ones did
+            self._absorb(states, i)
+            period *= self.growth
+        return states
+
+    def collapse(self, states: list[StoreState]) -> list[StoreState]:
+        """Absorb every level into the top level (for exports), as the JAX
+        package does.  No host read.  Updates `states` in place."""
+        for i in range(len(self.levels) - 1):
+            self._absorb(states, i)
+        return states
+
+    def lookup(self, states: list[StoreState], queries: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Counts summed over the levels (no collapse needed): (counts
+        int64 [N], found bool [N])."""
+        counts = found = None
+        for lvl, st in zip(self.levels, states):
+            c, f = lvl.lookup(st, queries)
+            counts = c if counts is None else counts + c
+            found = f if found is None else found | f
+        return counts, found
+
+    def _top(self, states: list[StoreState]) -> StoreState:
+        ns = torch.stack([st.n for st in states[:-1]]).cpu()
+        if bool(ns.any()):
+            raise RuntimeError("call collapse() first: the lower levels "
+                               "hold keys")
+        return states[-1]
+
+    def to_host(self, states: list[StoreState], key_map=None
+                ) -> tuple[np.ndarray, np.ndarray, int]:
+        """The top level's export; raises unless the lower levels are
+        empty (collapse first)."""
+        return self.levels[-1].to_host(self._top(states), key_map)
+
+    def state_from_reference(self, ref) -> list[StoreState]:
+        """Empty lower levels and the top level from a JAX store state (a
+        checkpoint keeps the collapsed top level only)."""
+        states = self.init_state()
+        states[-1] = self.levels[-1].state_from_reference(ref)
+        return states
+
+    def state_to_reference(self, states: list[StoreState]
+                           ) -> dict[str, np.ndarray]:
+        """The top level's JAX store-state fields; raises unless the lower
+        levels are empty (collapse first)."""
+        return self.levels[-1].state_to_reference(self._top(states))

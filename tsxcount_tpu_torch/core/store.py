@@ -114,9 +114,26 @@ class CountStore:
                 nxt.append(runs[-1])
             runs = nxt
         acc = runs[0][:n_keys] + (runs[0][n_keys].to(torch.int64),)
+        return self._fold(state, acc, state.overflowed)
+
+    def absorb(self, state: StoreState, other: StoreState) -> StoreState:
+        """Merge another store's contents into this one, summing the counts
+        of keys held by both (the LSM cascade step).  `other` may have
+        another capacity but holds keys of the same spec.  Its rows already
+        form one sorted run with the invalid constant and count 0 past its
+        n, so kernel 3 takes it as it is: no merge tree."""
+        run = tuple(other.keys.unbind(0)) + (other.counts,)
+        return self._fold(state, run, state.overflowed | other.overflowed)
+
+    def _fold(self, state: StoreState, run: tuple,
+              overflowed: torch.Tensor) -> StoreState:
+        """One merge-dedupe (kernel 3) of the store with a sorted run of
+        (operands, int64 count) whose invalid rows hold the invalid
+        constant, cut back to capacity with the tail invariant kept."""
+        n_keys = self.n_ops
         store_run = tuple(state.keys.unbind(0)) + (state.counts,)
         cols, _, n_valid = merge_dedupe_sorted(
-            store_run, acc, n_keys=n_keys, inv_min=self.inv_min
+            store_run, run, n_keys=n_keys, inv_min=self.inv_min
         )
         cap = self.capacity
         n_kept = torch.clamp(n_valid, max=cap)
@@ -127,7 +144,7 @@ class CountStore:
             keys=keys,
             counts=counts,
             n=n_kept,
-            overflowed=state.overflowed | (n_valid > cap),
+            overflowed=overflowed | (n_valid > cap),
         )
 
     def lookup(self, state: StoreState, queries: torch.Tensor
@@ -174,7 +191,8 @@ class CountStore:
         """Port state from the JAX package's store state, given as numpy
         arrays (a mapping or an object with fields keys uint32
         [cap, lanes], digits int32 [cap, 3], used bool [cap], n,
-        overflowed).  Its used rows must be the prefix [0, n)."""
+        overflowed).  Its used rows must be the prefix [0, n).  The
+        arrays are copied to the store's device and converted there."""
         get = ref.__getitem__ if isinstance(ref, Mapping) else (
             lambda f: getattr(ref, f))
         keys, digits, used, n, over = (np.asarray(get(f))
@@ -188,42 +206,41 @@ class CountStore:
             )
         if not np.array_equal(used, np.arange(cap) < n):
             raise ValueError("reference state: used rows must be [0, n)")
-        d = digits.astype(np.int64)
+        dev = self.device
+        # astype copies: the arrays may be read-only views (np.asarray of
+        # a JAX array), which torch.from_numpy refuses to share
+        keys = torch.from_numpy(keys.astype(np.uint32).view(np.int32)).to(dev)
+        d = torch.from_numpy(digits.astype(np.int64)).to(dev)
         counts = d[:, 0] + (d[:, 1] << COUNT_DIGIT_BITS) + (
             d[:, 2] << 2 * COUNT_DIGIT_BITS)
-        dev = self.device
-        ops = pack_flag_key(
-            torch.from_numpy(keys.astype(np.uint32).view(np.int32)),
-            torch.from_numpy(~used), self.spec,
-        )
-        packed, counts_t = self._tail_masked(
-            torch.stack(ops), torch.from_numpy(counts), n
-        )
+        invalid = torch.arange(cap, device=dev) >= n
+        packed, counts = self._tail_masked(
+            torch.stack(pack_flag_key(keys, invalid, self.spec)), counts, n)
         return StoreState(
-            keys=packed.to(dev),
-            counts=counts_t.to(dev),
+            keys=packed,
+            counts=counts,
             n=torch.tensor(n, dtype=torch.int64, device=dev),
             overflowed=torch.tensor(bool(over), device=dev),
         )
 
     def state_to_reference(self, state: StoreState) -> dict[str, np.ndarray]:
-        """The JAX package's store-state fields, as numpy arrays.  Rows past
-        n hold zero keys and digits, as the JAX fused merge leaves them."""
+        """The JAX package's store-state fields, as numpy arrays (converted
+        on the state's device, then copied).  Rows past n hold zero keys
+        and digits, as the JAX fused merge leaves them."""
         n = int(state.n)
-        cap = self.capacity
-        keys, _ = unpack_flag_key(list(state.keys.cpu()), self.spec)
-        used = np.arange(cap) < n
-        keys = np.where(used[:, None], keys.numpy().view(np.uint32), 0)
-        c = np.where(used, state.counts.cpu().numpy(), 0)
-        digits = np.stack([
+        keys, _ = unpack_flag_key(list(state.keys), self.spec)
+        used = torch.arange(self.capacity, device=keys.device) < n
+        keys = torch.where(used[:, None], keys, 0)
+        c = torch.where(used, state.counts, 0)
+        digits = torch.stack([
             c & COUNT_DIGIT_MASK,
             (c >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK,
             c >> 2 * COUNT_DIGIT_BITS,
-        ], axis=1).astype(np.int32)
+        ], dim=1).to(torch.int32)
         return {
-            "keys": keys.astype(np.uint32),
-            "digits": digits,
-            "used": used,
+            "keys": keys.cpu().numpy().view(np.uint32),
+            "digits": digits.cpu().numpy(),
+            "used": used.cpu().numpy(),
             "n": np.int32(n),
             "overflowed": np.bool_(bool(state.overflowed)),
         }

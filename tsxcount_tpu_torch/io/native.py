@@ -155,12 +155,13 @@ class _Handle:
     """One native parse stream over one byte range (end -1 = to EOF)."""
 
     def __init__(self, lib, path: str | Path, batch: BatchSpec,
-                 n_policy: str, seed: int, byte_start: int, byte_end: int):
+                 n_policy: str, seed: int, byte_start: int, byte_end: int,
+                 collapse: bool = False):
         self._lib = lib
         self.batch = batch
         self._h = lib.fxp_open_range(
             str(path).encode(), batch.spec.k, N_POLICY_CODES[n_policy],
-            seed, byte_start, byte_end, 0,
+            seed, byte_start, byte_end, int(collapse),
         )
         if not self._h:
             raise FileNotFoundError(path)
@@ -223,23 +224,29 @@ class NativeFileReader:
     threads > 1 splits an uncompressed file into byte ranges parsed
     concurrently (each ctypes call releases the GIL); batch order across
     ranges is arrival order — counting is order-invariant.  gzip input
-    degrades to one stream.  Raises RuntimeError if the parser cannot be
-    built.
+    degrades to one stream.  collapse: splice homopolymer runs as
+    io/packer.py collapse_homopolymers does (the owed counts go to
+    stats.hp_bonus).  Raises RuntimeError if the parser cannot be built.
     """
 
     def __init__(self, path: str | Path, batch: BatchSpec,
-                 n_policy: str = "drop", seed: int = 0, threads: int = 1):
+                 n_policy: str = "drop", seed: int = 0, threads: int = 1,
+                 collapse: bool = False):
         lib = load_native()
         if not Path(path).exists():
             raise FileNotFoundError(path)
         self.batch = batch
         self.stats = PackStats()
+        # live_stats (the consumer's thread) must not read a handle that
+        # _finalize_stats (the thread that drains the iterator) has closed
+        self._lock = threading.Lock()
         if threads > 1 and not is_gzip(path):
             ranges = split_ranges(path, threads)
         else:
             ranges = [(0, -1)]
         self._handles = [
-            _Handle(lib, path, batch, n_policy, seed + i, s, e)
+            _Handle(lib, path, batch, n_policy, seed + i, s, e,
+                    collapse=collapse)
             for i, (s, e) in enumerate(ranges)
         ]
 
@@ -260,13 +267,26 @@ class NativeFileReader:
         finally:
             self._finalize_stats()
 
+    def live_stats(self) -> PackStats:
+        """Ingest stats so far, while streaming (progress lines), from any
+        thread; after the iteration ends, .stats is final."""
+        with self._lock:
+            if not self._handles:
+                return self.stats
+            total = PackStats()
+            for h in self._handles:
+                total = add_stats(total, h.stats())
+            total.batches = self.stats.batches
+            return total
+
     def _finalize_stats(self):
-        if not self._handles:
-            return
-        total = PackStats()
-        for h in self._handles:
-            total = add_stats(total, h.stats())
-            h.close()
-        total.batches = self.stats.batches
-        self.stats = total
-        self._handles = []
+        with self._lock:
+            if not self._handles:
+                return
+            total = PackStats()
+            for h in self._handles:
+                total = add_stats(total, h.stats())
+                h.close()
+            total.batches = self.stats.batches
+            self.stats = total
+            self._handles = []

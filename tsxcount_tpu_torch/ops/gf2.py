@@ -69,6 +69,12 @@ class GF2Hash:
         # transposed float32 copies (bits @ A^T), one per device
         self._mats: dict = {}
 
+    def load(self, matrix: np.ndarray, inverse: np.ndarray) -> None:
+        """Take these matrices (a checkpoint's: they define the table's
+        layout) in place of the seeded ones."""
+        self.matrix, self.inverse = matrix, inverse
+        self._mats.clear()
+
     def _mat_t(self, which: str, dev: torch.device) -> torch.Tensor:
         key = (which, dev)
         if key not in self._mats:

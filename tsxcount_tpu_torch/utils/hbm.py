@@ -1,0 +1,143 @@
+"""Device-memory footprint model of one counting run, and a preflight check.
+
+The counterpart of `tsxcount_tpu/utils/hbm.py`, rewritten for the port's
+own buffers (the JAX model's digit triples, TPU tile padding and XLA sort
+factors do not apply).  Bytes per row are read off the code, not measured:
+
+  * store state (core/store.py): n_ops int32 operand words + one int64
+    count a row, per level of the LSM store (core/lsm.py);
+  * a store merge (CountStore._fold): kernel 3's output over store + run
+    rows, then the tail-masked copy of the kept rows (the operand columns
+    twice while they are stacked, the counts, the `used` mask), beside
+    the old state, the pending histograms (as the counter holds them and
+    stacked once more) and the merge tree's last run with its int64
+    counts;
+  * the batch dedupe (ops/window.py, ops/count.py): the int64 window
+    stream, the packed operands, the int64 sort words with torch.sort's
+    values, indices and working space, kernel 1's output, the unpacked
+    [P, lanes] keys; canonical mode adds its int64 lane temporaries;
+  * the table (core/table.py): its flat slot array, a split round's sort
+    and columns at full width, and the digit renormalisation's int64
+    temporaries over every slot;
+  * ingest: the device copies of the packed batches in flight.
+
+Every term is summed, as if the dedupe, the merge and the renormalisation
+peaked at once: an upper bound for `torch.cuda.max_memory_allocated()`,
+which the card run of chip_smoke.py holds the estimate against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from tsxcount_tpu_torch.config import BatchSpec, KmerSpec
+from tsxcount_tpu_torch.core.lsm import LSMStore
+
+MB = 1 << 20
+
+
+@dataclasses.dataclass
+class HbmEstimate:
+    state_mb: float
+    dedupe_peak_mb: float
+    merge_peak_mb: float
+    ingest_mb: float
+    total_mb: float
+
+    def as_dict(self) -> dict:
+        return {k: round(v, 1) for k, v in dataclasses.asdict(self).items()}
+
+
+def estimate_hbm(
+    k: int,
+    l: int,
+    batch_words: int,
+    backend: str = "sort",
+    merge_every: int = 4,
+    lsm: bool = False,
+    lsm_growth: int = 8,
+    hash_first: bool | str = False,
+    canonical: bool = False,
+    prefetch_depth: int = 3,
+) -> HbmEstimate:
+    """Peak device bytes of one counting run of the port, in MiB."""
+    spec = KmerSpec(k)
+    lanes = spec.lanes
+    n_ops = lanes if spec.top_lane_bits < 32 else lanes + 1
+    p = BatchSpec(spec, batch_words).positions
+    cap = 1 << l
+    # extraction (three int64 streams), operands, the sort words with
+    # values, indices and working space, kernel 1's output, the keys
+    dedupe = p * (96 + 16 * n_ops + 8 * lanes)
+    if hash_first:
+        dedupe += p * 4 * lanes  # the lane mix's output columns
+    if canonical:
+        dedupe += p * 32 * lanes  # forward, reverse and select, int64
+    pending_row = 4 * lanes + 5  # a histogram row: keys, count, valid
+    if backend == "table":
+        state = 4 * (lanes + 4) * cap
+        # the batch histogram, a full-width split round, and the digit
+        # renormalisation's temporaries over every slot
+        merge = p * (pending_row + 120 + 24 * lanes) + 40 * cap
+    else:
+        row = 4 * n_ops + 8  # a store row: operands + int64 count
+        fold = 12 * n_ops + 25  # kernel 3's output, tail copies, mask
+        flush = max(1, merge_every) * p
+        batch_side = flush * (2 * pending_row + 4 * (n_ops + 1) + 8 + row)
+        if lsm:
+            caps = LSMStore.level_capacities(cap, flush, lsm_growth)
+            state = row * sum(caps)
+            # the largest of the L0 merge and the absorbs into each level
+            merge = max([caps[0] * fold + batch_side]
+                        + [caps[i + 1] * fold + caps[i] * row
+                           for i in range(len(caps) - 1)])
+        else:
+            state = row * cap
+            merge = cap * fold + batch_side
+    # packed batches on the device: in the queue, in flight, in use (the
+    # interval budget at its largest, one read a word)
+    batch = BatchSpec(spec, batch_words, read_len_hint=1)
+    ingest = 4 * batch.buf_words * (prefetch_depth + 2)
+    total = state + dedupe + merge + ingest
+    return HbmEstimate(state_mb=state / MB, dedupe_peak_mb=dedupe / MB,
+                       merge_peak_mb=merge / MB, ingest_mb=ingest / MB,
+                       total_mb=total / MB)
+
+
+def estimate_for(counter) -> HbmEstimate:
+    """estimate_hbm of a built KmerCounter: its own geometry and options
+    (the LSM as its rule chose it), not the flags that asked for them."""
+    return estimate_hbm(
+        k=counter.spec.k, l=counter.l,
+        batch_words=counter.batch.capacity_words, backend=counter.backend,
+        merge_every=counter.merge_every, lsm=counter.lsm,
+        lsm_growth=counter.lsm_growth, hash_first=counter.hash_first,
+        canonical=counter.canonical, prefetch_depth=counter.prefetch_depth)
+
+
+def device_hbm_capacity_mb() -> float:
+    """Memory of the current CUDA device (MiB); raises without a GPU, where
+    the caller passes a capacity instead."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass capacity_mb")
+    return torch.cuda.mem_get_info()[1] / MB
+
+
+def preflight_check(est: HbmEstimate, capacity_mb: float | None = None,
+                    headroom: float = 0.9) -> str | None:
+    """A warning when the estimate exceeds `headroom` of the device's
+    memory, else None.  Callers print it and go on: the model is an
+    estimate, not an allocator."""
+    cap = capacity_mb if capacity_mb is not None else device_hbm_capacity_mb()
+    if est.total_mb > headroom * cap:
+        return (
+            f"estimated device footprint {est.total_mb / 1024:.1f} GB "
+            f"exceeds {headroom:.0%} of device memory ({cap / 1024:.2f} "
+            f"GB): expect an out-of-memory error — reduce --l or "
+            f"--batch-words (state {est.state_mb / 1024:.1f} G, dedupe "
+            f"peak {est.dedupe_peak_mb / 1024:.1f} G, merge peak "
+            f"{est.merge_peak_mb / 1024:.1f} G)"
+        )
+    return None
