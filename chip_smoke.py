@@ -19,7 +19,9 @@ non-zero and no result line is printed):
      (their tiles finish in a different order on every call), with kernel
      3's scratch bytes; kernel 2 at one key word (the main shape) and at
      2, 3 and 8 full 32-bit words, timed at 1, 2 and 8 (2 and 8 in its
-     kernel_time line);
+     kernel_time line); kernels 2 and 3 at phase 8a's shapes too (two
+     routed runs of route_cap rows; the 2^24-row shard store and their
+     merged run), timed in their kernel_time lines;
      kernel 4 timed as the table calls it, one launch over a round's four
      value columns, and kernel 5 as one launch over the two k=14 probe
      columns and as one column, both with the 32-byte sectors they touch
@@ -61,11 +63,31 @@ non-zero and no result line is printed):
      canonical counts, walls beside the plain counts'; a count split in two
      halves with save_counter / load_counter between them (sort with the
      LSM, table), equal to the whole count; the command line in process at
-     its defaults (--stats-json --save-state: the totals), one
+     its defaults (--stats-json --save-state: the totals; its default
+     --shards 1 is the sharded counter, so 8c is checked here: the
+     sharded stats keys, a file of n_shards 1 that loads back to the
+     numpy count), one
      `python -m tsxcount_tpu_torch count --dump --check` process on a
      small file (exit 0), --checkabort (200) and a too-small --l (42); and
      the memory model's estimate held above the allocator's peak for the
      LSM, canonical and command-line counts;
+  8. the sharded counter (parallel/sharded.py): 8a, the reference's main
+     path, ShardedKmerCounter at one shard (alone: no process group) at
+     bench.py's sharded defaults (k=14, l=24, merge_every 2,
+     capacity_factor 1.5, bench.py's auto batch words): totals, export
+     and queries against the numpy count, cold and warm walls and the
+     card's busy time beside KmerCounter at the same geometry, launches,
+     the memory estimate (n_shards 1) against the peak, then one more
+     count on a one-rank NCCL group made first (its collectives through
+     NCCL; export against the numpy count); kernels 2 and 3 were held at
+     8a's shapes in phase 3; 8b, the table at
+     k=14, l=26 (the lane mix, kernels 5, 4, 1) and the sort backend at
+     k=127 (the mix, the prefix sort) at one shard, each export against
+     its numpy count, busy times beside the plain counter's; 8d, two rank
+     processes on the one card (cuda:0,
+     gloo stages the exchange through the host), sort and table at k=14,
+     each rank its byte range of the file, exports against the numpy
+     count;
 then the kernels' JSON line (the contract's keys; extra times, floors and
 bounds only in the kernel_time lines), the nvidia-smi line, and as the
 last line
@@ -79,6 +101,7 @@ import contextlib
 import gc
 import io
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -125,6 +148,13 @@ from tsxcount_tpu_torch.core.checkpoint import (  # noqa: E402
     save_counter,
 )
 from tsxcount_tpu_torch.utils.hbm import estimate_for  # noqa: E402
+from tsxcount_tpu_torch.config import (  # noqa: E402
+    BatchSpec,
+    route_capacity,
+)
+from tsxcount_tpu_torch.parallel.sharded import (  # noqa: E402
+    ShardedKmerCounter,
+)
 from tsxcount_tpu_torch.utils.profiling import device_busy_us  # noqa: E402
 
 K = 14
@@ -320,12 +350,24 @@ def check_compact_repeats(flag, cols, rows: int) -> None:
           flags=str(flag.dtype), calls=COMPACT_REPEATS, bit_identical=True)
 
 
-def check_merge(results: dict) -> None:
+def route_run(rows: int, n_invalid: int, first: int) -> tuple:
+    """A k=14 routed run as the sharded merge tree gets it: `rows` one-word
+    keys ascending, the last n_invalid the invalid constant, and an int32
+    payload first, first + 1, ... (so that stability shows)."""
+    keys = np.concatenate([sorted_keys(rows - n_invalid, 1, INV14)[:, 0],
+                           np.full(n_invalid, INV14, np.uint32)])
+    return (gpu(keys), torch.arange(first, first + rows, dtype=torch.int32,
+                                    device=DEV))
+
+
+def check_merge(results: dict, route_cap: int) -> None:
     """Kernel 2 against its plain version: the main shape (one key word,
-    int32 payload, 2 x 2^24 rows), one key over every row (stability), and
-    2, 3 and 8 full 32-bit key words at 2 x 2^21 rows; timed at the main
-    shape (the contract's keys) and at 2 and 8 key words (extras), each
-    beside its bound: (4 * n_keys + 4) B read and written per row."""
+    int32 payload, 2 x 2^24 rows), one key over every row (stability),
+    2, 3 and 8 full 32-bit key words at 2 x 2^21 rows, and phase 8a's
+    shape (two routed runs of route_cap rows, a third of each the invalid
+    tail); timed at the main shape (the contract's keys), at 2 and 8 key
+    words and at 8a's shape (extras), each beside its bound: (4 * n_keys
+    + 4) B read and written per row."""
     worst = 0
     extra = {}
     cases = {
@@ -360,6 +402,16 @@ def check_merge(results: dict) -> None:
             extra[f"ms_n_keys{n_keys}"] = cuda_ms(
                 lambda: merge_sorted(a_cols, b_cols, n_keys=n_keys))
             extra[f"bound_ms_n_keys{n_keys}"] = bound
+    a = route_run(route_cap, route_cap // 3, 0)
+    b = route_run(route_cap, route_cap // 3, route_cap)
+    err = max_err(merge_sorted(a, b), merge_sorted_plain(a, b))
+    phase("kernel", name="merge_sorted", case="sharded_8a",
+          rows=2 * route_cap, n_keys=1, max_abs_err=err)
+    worst = max(worst, err)
+    tag = f"rows2x{route_cap}"
+    extra[f"ms_{tag}"] = cuda_ms(lambda: merge_sorted(a, b))
+    extra[f"plain_ms_{tag}"] = cuda_ms(lambda: merge_sorted_plain(a, b))
+    extra[f"bound_ms_{tag}"] = bytes_ms(2 * (2 * route_cap) * 8)
     results["merge_sorted"] = dict(max_abs_err=worst, ms=ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
                                    bound_ms=main_bound, extra=extra)
@@ -383,8 +435,14 @@ def dedupe_run(n: int, n_keys: int, hi: int, n_invalid: int, inv_min: int,
     return tuple(gpu(keys[:, j]) for j in range(n_keys)) + (gpu(cnt),)
 
 
-def check_merge_dedupe(results: dict) -> None:
+def check_merge_dedupe(results: dict, route_cap: int) -> None:
+    """Kernel 3 against its plain version: the k=14 store merge (the main
+    shape, timed for the contract's keys), sums across 2^32, an all-invalid
+    side, full 32-bit words, and phase 8a's fold (its 2^24-row shard store
+    and the merged run of 2 x route_cap rows, timed in the extras)."""
     worst = 0
+    extra = {}
+    sharded = f"rows2^24+2x{route_cap}"
     cases = {
         # store run (unique keys) + batch run, k=14 operands
         "main": (dedupe_run(1 << 26, 1, 1 << 28, 1 << 24, INV14, (1, 1000),
@@ -405,6 +463,13 @@ def check_merge_dedupe(results: dict) -> None:
             dedupe_run(1 << 22, 3, 1 << 32, 5000, 1, (1, 1 << 40)),
             dedupe_run(1 << 21, 3, 1 << 32, 0, 1, (1, 1 << 40)),
             3, 1),
+        # phase 8a: the shard store + the two routed runs merged
+        "sharded_8a": (
+            dedupe_run(1 << 24, 1, 1 << 28, 1 << 21, INV14, (1, 1000),
+                       unique=True),
+            dedupe_run(2 * route_cap, 1, 1 << 28, 2 * route_cap // 3, INV14,
+                       (1, 100)),
+            1, INV14),
     }
     for case, (a, b, n_keys, inv_min) in cases.items():
         got, g_runs, g_valid = merge_dedupe_sorted(a, b, n_keys, inv_min)
@@ -433,11 +498,19 @@ def check_merge_dedupe(results: dict) -> None:
             # run written
             bound = bytes_ms((a[0].numel() + b[0].numel()) * 12
                              + int(w_runs) * 12)
+        elif case == "sharded_8a":
+            extra[f"ms_{sharded}"] = cuda_ms(
+                lambda: merge_dedupe_sorted(a, b, 1, INV14))
+            extra[f"plain_ms_{sharded}"] = cuda_ms(
+                lambda: merge_dedupe_sorted_plain(a, b, 1, INV14))
+            extra[f"bound_ms_{sharded}"] = bytes_ms((m + n + int(w_runs))
+                                                    * 12)
     worst = max(worst, check_store_junk_tail())
     # no single PyTorch call merges, dedupes and sums: library_ms is null
     results["merge_dedupe_sorted"] = dict(max_abs_err=worst, ms=ms,
                                           plain_ms=plain_ms,
-                                          library_ms=None, bound_ms=bound)
+                                          library_ms=None, bound_ms=bound,
+                                          extra=extra)
 
 
 def check_repeats(case: str, a, b, n_keys: int, inv_min: int, first,
@@ -1130,6 +1203,11 @@ def check_wide_export(counter: KmerCounter, want: tuple, tag: str) -> None:
     """The counter's full export (keys mapped back on the card) equals the
     numpy count, key by key and count by count."""
     keys, counts, _ = counter.store.to_host(counter.state, counter.key_map)
+    check_wide_arrays(keys, counts, want, tag)
+
+
+def check_wide_arrays(keys: np.ndarray, counts: np.ndarray, want: tuple,
+                      tag: str) -> None:
     fp = fingerprint(keys)
     order = np.argsort(fp, kind="stable")
     if not (fp.size == want[2].size
@@ -1160,7 +1238,8 @@ def wide_end_to_end(path: Path) -> tuple[dict, tuple]:
     and k=127 without the lane mix; cold and warm walls of both k=127
     counts.  Returns the launches summed over the cold counts (each read
     from counts zeroed just before it) and the numpy count at k=31 (keys,
-    counts), which phase 7 folds to canonical."""
+    counts), which phase 7 folds to canonical, and phase 8 reuses at
+    k=127: the numpy counts by k."""
     launches = dict.fromkeys(_build.LAUNCHES, 0)
     wants = {}
     for k, hash_first in WIDE_RUNS:
@@ -1204,7 +1283,7 @@ def wide_end_to_end(path: Path) -> tuple[dict, tuple]:
                   kmers_per_s_warm=round(total / warm),
                   warm_device_busy_ms=round(busy, 3))
         del counter
-    return launches, wants[31][:2]
+    return launches, wants
 
 
 # --- phase 7 ----------------------------------------------------------------
@@ -1453,15 +1532,16 @@ def golden_text(keys: np.ndarray, counts: np.ndarray, k: int) -> str:
         kmers[order].astype(f"U{k}").tolist(), counts[order].tolist()))
 
 
-def cli_runs(path: Path) -> dict:
+def cli_runs(path: Path, want: tuple) -> dict:
     """The command line: in process at its defaults on the bench FASTQ
     with --stats-json --save-state (totals, the memory estimate against the
-    peak); one `python -m tsxcount_tpu_torch count` process on the small
-    file with --dump --check (exit 0, the dump byte for byte the golden
-    file);
-    --checkabort against a one-line golden file whose count is off by one
-    (exit 200) and a too-small --l (exit 42), in process.  Returns the in-process
-    default run's launches."""
+    peak; 8c: its default --shards 1 is the sharded counter, so the line
+    carries the sharded keys and the file n_shards 1, and the file loads
+    back to the numpy count); one `python -m tsxcount_tpu_torch count`
+    process on the small file with --dump --check (exit 0, the dump byte
+    for byte the golden file); --checkabort against a one-line golden
+    file whose count is off by one (exit 200) and a too-small --l (exit
+    42), in process.  Returns the in-process default run's launches."""
     ckpt = _build.BUILD_DIR / "cli.npz"
     out = io.StringIO()
     _build.reset_launch_counts()
@@ -1490,6 +1570,21 @@ def cli_runs(path: Path) -> dict:
                              f"{stats['total_kmers']}/"
                              f"{stats['distinct_kmers']}")
     require_kernels(launches, SORT_KERNELS, "cli")
+    sharded_keys = {"n_shards", "shard_distinct", "shard_imbalance",
+                    "spill_recovered"}
+    with np.load(ckpt) as data:
+        saved_shards = json.loads(str(data["meta"]))["n_shards"]
+    if not sharded_keys <= set(stats) or (stats["n_shards"],
+                                          saved_shards) != (1, 1):
+        raise AssertionError(f"8c: stats keys {sorted(stats)}, n_shards "
+                             f"{stats.get('n_shards')}, saved {saved_shards}")
+    loaded = load_counter(ckpt, batch_words=1 << 20, device="cuda")
+    check_sharded(loaded, want, "8c load")
+    phase("cli", run="8c sharded keys and state", n_shards=saved_shards,
+          shard_distinct=stats["shard_distinct"],
+          spill_recovered=stats["spill_recovered"],
+          loaded=type(loaded).__name__)
+    del loaded
     ckpt.unlink()
 
     small = _build.BUILD_DIR / "small.2000.fastq"
@@ -1533,10 +1628,243 @@ def user_surface(path: Path, want: tuple, want31: tuple,
     lsm = lsm_counts(path, want, results)
     user = dict.fromkeys(_build.LAUNCHES, 0)
     for run in (canonical_counts(path, want, want31), split_runs(path, want),
-                cli_runs(path)):
+                cli_runs(path, want)):
         for name in user:
             user[name] += run[name]
     return lsm, user
+
+
+# --- phase 8 ----------------------------------------------------------------
+
+def auto_batch_words(path: Path, k: int) -> int:
+    """bench.py's auto_batch_words rule on the port's native reader: a
+    prepass counts the packed words, then batches of about
+    bench.TARGET_BATCH_WORDS words divide them evenly, rounded up to
+    4096 words with 0.4 % slack."""
+    batch = BatchSpec(KmerSpec(k), bench.TARGET_BATCH_WORDS, 384)
+    reader = native.NativeFileReader(path, batch)
+    for _ in reader:
+        pass
+    words = reader.stats.packed_words
+    n = max(1, round(words / bench.TARGET_BATCH_WORDS))
+    return -(-int(words * 1.004) // (n * 4096)) * 4096
+
+
+def sharded_8a_shape(path: Path) -> tuple[int, int]:
+    """(batch words, route_cap) of phase 8a: bench.py's auto batch words
+    and the routing capacity at one shard, capacity_factor 1.5."""
+    bw = auto_batch_words(path, K)
+    positions = BatchSpec(KmerSpec(K), bw).positions
+    return bw, route_capacity(positions, 1, 1.5)[0]
+
+
+def sharded_arrays(c) -> tuple[np.ndarray, np.ndarray]:
+    """Every shard's (keys uint32 [n, lanes] mapped back through the mix
+    on the card, counts int64), gathered to every rank: a collective."""
+    c.distinct  # folds pending runs, collapses an LSM
+    keys, counts = c._shard_export()
+    keys = torch.cat(c._gather_rows(keys))
+    counts = torch.cat(c._gather_rows(counts))
+    if c.hashed_store and keys.shape[0]:
+        keys = c.route_map.inv_apply(keys)
+    return keys.cpu().numpy().view(np.uint32), counts.cpu().numpy()
+
+
+def flat_export(keys: np.ndarray, counts: np.ndarray) -> tuple:
+    """(int64 keys ascending, counts) of k <= 32 keys."""
+    keys = keys.astype(np.int64)
+    flat = keys[:, 0] | (keys[:, 1] << 32 if keys.shape[1] > 1 else 0)
+    order = np.argsort(flat, kind="stable")
+    return flat[order], np.asarray(counts, np.int64)[order]
+
+
+def check_sharded(c, want: tuple, tag: str) -> None:
+    total, distinct = c.total_kmers, c.distinct
+    if (total, distinct) != (int(want[1].sum()), len(want[0])):
+        raise AssertionError(f"{tag}: totals {total}/{distinct}")
+    got = flat_export(*sharded_arrays(c))
+    if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"{tag}: export differs from the numpy count")
+
+
+def made_sharded(path: Path, **kw) -> tuple:
+    """(a new one-shard counter on the card, its cold count's seconds)."""
+    c = ShardedKmerCounter(n_shards=1, device="cuda", **kw)
+    return c, timed_count(c, path)
+
+
+def sharded_counts(path: Path, want: tuple, want127: tuple) -> dict:
+    """Phase 8.  8a: the reference's main path, ShardedKmerCounter at one
+    shard (no process group) at bench.py's sharded defaults (k=14,
+    l=24, merge_every 2, capacity_factor 1.5, its auto batch words):
+    totals, export and queries against the numpy count, cold and warm
+    walls and the card's busy time beside the plain KmerCounter at the
+    same geometry, launches, the memory estimate against the peak; one
+    more count on a one-rank NCCL group.  8b:
+    the table at k=14, l=26 and the sort backend at k=127 (the mix and
+    the prefix sort), at one shard, each export against its numpy count,
+    the card's busy time beside the plain counter's.
+    8d: two ranks on the one card over gloo.  Returns the launches of the
+    one-shard counts (8a, 8b), each read from counts zeroed just before
+    it."""
+    bw, route_cap = sharded_8a_shape(path)
+    geo = dict(k=K, l=24, merge_every=2, batch_words=bw)
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    _build.reset_launch_counts()
+    c, cold = peak_checked("sharded_8a,cold", lambda: made_sharded(
+        path, capacity_factor=1.5, **geo), counter_estimate)
+    run = _build.launch_counts()
+    require_kernels(run, SORT_KERNELS, "8a")
+    check_sharded(c, want, "8a")
+    check_queries(c, *want)
+    st = c.stats()
+    if (st["n_shards"], st["spill_recovered"], c.group.backend,
+            c.route_cap) != (1, 0, None, route_cap):
+        raise AssertionError(f"8a: stats {st}, group {c.group}, route_cap "
+                             f"{c.route_cap} (phase 3 held {route_cap})")
+    c.reset()
+    warm = timed_count(c, path)
+    check_sharded(c, want, "8a warm")
+    c.reset()
+    busy = device_busy_ms(lambda: c.count_file(path, use_native=True))
+    phase("e2e_sharded", run="8a", batch_words=bw,
+          batches=c.batches_processed, route_cap=c.route_cap,
+          carry=c._carry_enabled, lsm=c.lsm, cold_s=round(cold, 4),
+          warm_s=round(warm, 4), kmers_per_s_warm=round(TOTAL_KMERS / warm),
+          warm_device_busy_ms=round(busy, 3), launches=run)
+    for name in launches:
+        launches[name] += run[name]
+    del c
+    # the same count with its collectives through a one-rank NCCL group
+    t0 = time.perf_counter()
+    torch.distributed.init_process_group(
+        "nccl", store=torch.distributed.HashStore(), rank=0, world_size=1)
+    try:
+        _build.reset_launch_counts()
+        c, cold = made_sharded(path, capacity_factor=1.5, **geo)
+        run = _build.launch_counts()
+        require_kernels(run, SORT_KERNELS, "8a nccl")
+        if c.group.backend != "nccl":
+            raise AssertionError(f"8a nccl: group {c.group}")
+        check_sharded(c, want, "8a nccl")
+        for name in launches:
+            launches[name] += run[name]
+        del c
+    finally:
+        torch.distributed.destroy_process_group()
+    phase("e2e_sharded", run="8a on a one-rank NCCL group",
+          cold_s=round(cold, 4),
+          with_group_setup_s=round(time.perf_counter() - t0, 4))
+    p = KmerCounter(device="cuda", **geo)
+    p_cold = timed_count(p, path)
+    p.reset()
+    p_warm = timed_count(p, path)
+    p.reset()
+    p_busy = device_busy_ms(lambda: p.count_file(path, use_native=True))
+    check_export(p, want, "8a plain")
+    phase("e2e_sharded", run="8a plain KmerCounter, same geometry",
+          cold_s=round(p_cold, 4), warm_s=round(p_warm, 4),
+          kmers_per_s_warm=round(TOTAL_KMERS / p_warm),
+          warm_device_busy_ms=round(p_busy, 3))
+    del p
+
+    for tag, kw, need in (
+            ("8b table k=14 l=26", dict(k=K, l=26, backend="table"),
+             TABLE_KERNELS + ("lane_mix",)),
+            ("8b sort k=127 l=25", dict(k=127, l=WIDE_L),
+             SORT_KERNELS + ("lane_mix",))):
+        _build.reset_launch_counts()
+        c, cold = made_sharded(path, batch_words=1 << 20, **kw)
+        run = _build.launch_counts()
+        require_kernels(run, need, tag)
+        if kw["k"] == K:
+            check_sharded(c, want, tag)
+        else:
+            check_wide_arrays(*sharded_arrays(c), want127, tag)
+        c.reset()
+        busy = device_busy_ms(lambda: c.count_file(path, use_native=True))
+        phase("e2e_sharded", run=tag, cold_s=round(cold, 4),
+              hashed_store=c.hashed_store, distinct=c.distinct,
+              warm_device_busy_ms=round(busy, 3), launches=run)
+        for name in launches:
+            launches[name] += run[name]
+        del c
+        p = KmerCounter(device="cuda", batch_words=1 << 20, **kw)
+        p.count_file(path, use_native=True)
+        p.reset()
+        p_busy = device_busy_ms(lambda: p.count_file(path, use_native=True))
+        phase("e2e_sharded", run=tag + " plain KmerCounter",
+              warm_device_busy_ms=round(p_busy, 3))
+        del p
+    two_ranks_on_one_card(path, want)
+    return launches
+
+
+RANKS_8D = 2
+RANK_TIMEOUT_S = 300
+
+
+def rank_8d(rank: int, init: str, path: str, out: str) -> None:
+    """One of 8d's ranks (a process of its own): sort and table at k=14,
+    l=26, 2^20-word batches, each rank its byte range of the file, on
+    cuda:0 over gloo; rank 0 writes the gathered exports."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=RANKS_8D)
+    res = {}
+    for backend in ("sort", "table"):
+        _build.reset_launch_counts()
+        c = ShardedKmerCounter(k=K, n_shards=RANKS_8D, l=26, backend=backend,
+                               batch_words=1 << 20, device="cuda:0",
+                               dist_backend="gloo")
+        res[f"{backend}/seconds"] = timed_count(c, Path(path))
+        res[f"{backend}/launches"] = json.dumps(_build.launch_counts())
+        res[f"{backend}/keys"], res[f"{backend}/counts"] = flat_export(
+            *sharded_arrays(c))
+        res[f"{backend}/shard_distinct"] = c.stats()["shard_distinct"]
+        del c
+        torch.cuda.empty_cache()
+    if rank == 0:
+        np.savez(out, **res)
+    dist.destroy_process_group()
+
+
+def two_ranks_on_one_card(path: Path, want: tuple) -> None:
+    """8d: RANKS_8D processes on the one card, the CUDA tensors of the
+    exchange staged through the host by gloo; exports against the numpy
+    count."""
+    tmp = _build.BUILD_DIR / "ranks8d"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    out = tmp / "rank0.npz"
+    code = ("import sys, chip_smoke; chip_smoke.rank_8d(int(sys.argv[1]), "
+            "sys.argv[2], sys.argv[3], sys.argv[4])")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), f"file://{tmp}/pg", str(path),
+         str(out)], cwd=REPO) for r in range(RANKS_8D)]
+    try:
+        codes = [p.wait(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        raise AssertionError(f"8d: rank exit codes {codes}")
+    res = dict(np.load(out))
+    for backend in ("sort", "table"):
+        got = (res[f"{backend}/keys"], res[f"{backend}/counts"])
+        if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"8d {backend}: export differs from the "
+                                 f"numpy count")
+        phase("e2e_sharded", run=f"8d {backend}, {RANKS_8D} ranks gloo "
+              f"cuda:0", cold_s=round(float(res[f"{backend}/seconds"]), 4),
+              shard_distinct=res[f"{backend}/shard_distinct"].tolist(),
+              rank0_launches=str(res[f"{backend}/launches"]))
+    phase("e2e_sharded", run="8d", seconds=round(time.perf_counter() - t0,
+                                                 3))
 
 
 def check_errors(results: dict) -> None:
@@ -1549,14 +1877,15 @@ def main() -> int:
     name, smi = environment()
     build()
     results: dict = {}
+    path = bench_file()
+    route_cap = sharded_8a_shape(path)[1]  # kernels 2 and 3 at 8a's shapes
     check_compact(results)
-    check_merge(results)
-    check_merge_dedupe(results)
+    check_merge(results, route_cap)
+    check_merge_dedupe(results, route_cap)
     check_apply_kernels(results)
     check_lane_mix(results)
     check_wide_kernels(results)
     check_errors(results)
-    path = bench_file()
     t0 = time.perf_counter()
     want_keys, want_counts = host_count(path, K)
     phase("e2e_setup", fastq=path.name, reads=bench.N_READS,
@@ -1564,11 +1893,15 @@ def main() -> int:
           host_distinct=len(want_keys), host_total=int(want_counts.sum()))
     by_path = {"sort": end_to_end(path, want_keys, want_counts),
                "table": table_end_to_end(path, want_keys, want_counts)}
-    by_path["wide"], want31 = wide_end_to_end(path)
+    by_path["wide"], wants = wide_end_to_end(path)
     t0 = time.perf_counter()
     by_path["lsm"], by_path["user"] = user_surface(
-        path, (want_keys, want_counts), want31, results)
+        path, (want_keys, want_counts), wants[31][:2], results)
     phase("user_surface", seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    by_path["sharded"] = sharded_counts(path, (want_keys, want_counts),
+                                        wants[127])
+    phase("sharded", seconds=round(time.perf_counter() - t0, 3))
     check_errors(results)
     for kname, r in results.items():
         times = {k: v for k, v in r.items() if k not in ("max_abs_err",

@@ -112,25 +112,52 @@ def test_cli_help_runs():
 
 @pytest.mark.parametrize("shards", ["0", "1"])
 def test_cli_shards_0_and_1_match_jax_cli(fastq, tmp_path, shards, capsys):
-    """Both run the single-GPU counter: the dump equals the JAX CLI's at
-    the same --shards (its --shards 1 is the sharded pipeline on one
-    device) and the naive count; --shards 1 prints its note."""
+    """--shards 0 runs the plain counter and --shards 1 the sharded one on
+    one device, as the JAX CLI does: the dump equals the JAX CLI's at the
+    same --shards and the naive count, the --stats-json line carries every
+    key of the JAX line (at --shards 1 the sharded ones: n_shards,
+    shard_distinct, shard_imbalance, spill_recovered) and --save-state
+    writes the JAX file's n_shards."""
+    path, reads = fastq
+    out = {}
+    for tag, run, platform in (("ours", main, CPU),
+                               ("ref", jax_main, ["--platform", "cpu"])):
+        assert run(_count(path, "--shards", shards, "--dump",
+                          str(tmp_path / f"{tag}.count"), "--stats-json",
+                          "--save-state", str(tmp_path / f"{tag}.npz"),
+                          *platform)) == 0
+        cap = capsys.readouterr()
+        out[tag] = json.loads(cap.out.strip().splitlines()[-1])
+        assert "item 12" not in cap.err
+        with np.load(tmp_path / f"{tag}.npz") as data:
+            out[tag]["saved_n_shards"] = json.loads(str(data["meta"]))[
+                "n_shards"]
+    assert read_golden(tmp_path / "ours.count") == read_golden(
+        tmp_path / "ref.count") == dict(naive_kmers(reads, 9))
+    ours, ref = out["ours"], out["ref"]
+    assert set(ref) <= set(ours), set(ref) - set(ours)
+    sharded = {"n_shards", "shard_distinct", "shard_imbalance",
+               "spill_recovered"}
+    assert (sharded <= set(ours)) == (shards == "1")
+    for key in ("total_kmers", "distinct_kmers", "saved_n_shards",
+                *(sharded & set(ref))):
+        assert ours[key] == ref[key], key
+    assert ours["saved_n_shards"] == int(shards)
+
+
+@pytest.mark.parametrize("shards", ["2", "3"])
+def test_cli_shards_2_refused(fastq, tmp_path, shards):
+    """--shards 2 and 3 (once refused) start that many CPU rank processes
+    on gloo: the dump equals the JAX CLI's at the same --shards (its
+    8-device CPU mesh) and the naive count."""
     path, reads = fastq
     ours, ref = tmp_path / "ours.count", tmp_path / "ref.count"
     assert main(_count(path, "--shards", shards, "--dump", str(ours),
                        *CPU)) == 0
-    note = "sharded pipeline comes with ROADMAP Queue 1 item 12"
-    assert (note in capsys.readouterr().err) == (shards == "1")
     assert jax_main(_count(path, "--shards", shards, "--dump", str(ref),
                            "--platform", "cpu")) == 0
     assert read_golden(ours) == read_golden(ref) == dict(
         naive_kmers(reads, 9))
-
-
-def test_cli_shards_2_refused(fastq, capsys):
-    path, _ = fastq
-    assert main(_count(path, "--shards", "2", *CPU)) == 2
-    assert "ROADMAP Queue 1 item 12" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("hash_first", ["off", "mix", "auto"])
@@ -152,9 +179,22 @@ def test_cli_unported_options_refused(fastq, flags, capsys):
 
 
 def test_cli_routing_hash_ignored_with_warning(fastq, capsys):
+    """The plain counter (--shards 0) routes nothing: the flag is ignored
+    with a warning there."""
     path, _ = fastq
-    assert main(_count(path, "--routing-hash", "gf2", *CPU)) == 0
+    assert main(_count(path, "--shards", "0", "--routing-hash", "gf2",
+                       *CPU)) == 0
     assert "warning: --routing-hash is ignored" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("routing,rc", [("mix", 0), ("gf2", 2)])
+def test_cli_routing_hash_of_the_sharded_counter(fastq, capsys, routing, rc):
+    """At the default --shards 1 the sharded counter reads the flag: the
+    lane mix runs, the GF(2) routing is refused (the 'Do not port'
+    list)."""
+    path, _ = fastq
+    assert main(_count(path, "--routing-hash", routing, *CPU)) == rc
+    assert ("Do not port" in capsys.readouterr().err) == (rc == 2)
 
 
 @pytest.mark.parametrize("mode", ["SERIAL", "TSX"])

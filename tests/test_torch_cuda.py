@@ -564,3 +564,49 @@ def test_lsm_counter_on_card_matches_cpu_levels(dev):
         for f in lv_card:
             assert np.array_equal(lv_card[f], lv_cpu[f]), f
     assert out[0][1] == out[1][1]
+
+
+@pytest.mark.parametrize("k,backend,l", [(14, "sort", 16), (14, "table", 16),
+                                         (127, "sort", 15)])
+@pytest.mark.parametrize("nccl", [False, True])
+def test_sharded_one_shard_on_card_matches_cpu(dev, k, backend, l, nccl):
+    """chip_smoke phases 8a and 8b at a small size: the sharded counter at
+    one shard on the card (alone, or on a one-rank NCCL group made first,
+    which its collectives then go through; the lane mix at the table and
+    at k=127) counts what the plain counter counts on the CPU, through
+    the kernels of its path, and answers the same queries."""
+    from tsxcount_tpu_torch import _build
+    from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    rng = np.random.default_rng(k + l)
+    reads = ["".join(rng.choice(list("ACGTN"), size=rng.integers(k, 400)))
+             for _ in range(300)]
+    kw = dict(k=k, l=l, backend=backend, batch_words=512, merge_every=2)
+    if nccl:
+        torch.distributed.init_process_group(
+            "nccl", store=torch.distributed.HashStore(), rank=0,
+            world_size=1)
+    _build.reset_launch_counts()
+    try:
+        s = ShardedKmerCounter(n_shards=1, capacity_factor=1.5, device=dev,
+                               **kw)
+        s.add_reads(reads)
+        s.finish()
+        launches = _build.launch_counts()
+        p = KmerCounter(device="cpu", **kw)
+        p.add_reads(reads)
+        p.finish()
+        assert s.group.backend == ("nccl" if nccl else None)
+        assert s.device.type == "cuda"
+        want = p.to_dict()
+        assert s.to_dict() == want
+        queries = list(want)[:500] + ["A" * k]
+        assert s.get_counts(queries) == p.get_counts(queries)
+    finally:
+        if nccl:
+            torch.distributed.destroy_process_group()
+    need = (["gather_sorted", "apply_sorted_unique", "compact_flagged",
+             "lane_mix"] if backend == "table" else
+            ["compact_flagged", "merge_sorted", "merge_dedupe_sorted"]
+            + (["lane_mix"] if k == 127 else []))
+    assert all(launches[name] > 0 for name in need), launches

@@ -48,6 +48,49 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "tsxcount_tpu"), (path, mod)
 
 
+def test_no_jax_walk_covers_the_sharded_modules():
+    """The walk above reaches parallel/ (the sharded counter), whose
+    modules exist."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"parallel/mesh.py", "parallel/sharded.py",
+            "parallel/distributed.py"} <= walked
+
+
+def test_sharded_counter_and_group_need_the_card_or_an_explicit_cpu(
+        tmp_path, capsys):
+    """ShardedKmerCounter and init_shard_group default to the rank's own
+    card and NCCL: without a GPU they raise, and the CPU (with gloo) is
+    used only when asked for; the command line stops with an ERROR line
+    at any --shards unless --platform cpu is given."""
+    from tsxcount_tpu_torch.cli import main
+    from tsxcount_tpu_torch.parallel.mesh import init_shard_group
+    from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the card is the valid default here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedKmerCounter(k=14, n_shards=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_shard_group(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_shard_group(1, device="cuda:0", backend="gloo")
+    c = ShardedKmerCounter(k=14, n_shards=1, l=8, device="cpu")
+    # one shard runs alone: no process group, no collective
+    assert c.device.type == "cpu" and c.group.backend is None
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="backend"):
+        init_shard_group(1, device="cpu", backend="nccl")
+    with pytest.raises(ValueError, match="ranks"):
+        init_shard_group(2, device="cpu")
+    path = tmp_path / "r.fastq"
+    path.write_text("@r\nACGTACGTACGTACGTACGT\n+\nIIIIIIIIIIIIIIIIIIII\n")
+    for shards in ("1", "2"):
+        assert main(["count", "--input", str(path), "--l", "8",
+                     "--shards", shards]) == 2
+        err = capsys.readouterr().err
+        assert "ERROR:" in err and "--platform cpu" in err
+
+
 def test_cuda_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: device='cuda' is valid here")

@@ -7,13 +7,15 @@ It covers the single-GPU surface of the JAX package: the sort backend for
 k <= 256 (from k = 113 through the lane-mix bijection) with the flat or the
 LSM count store, the quotient-table backend for k <= 127, canonical
 counting, homopolymer collapse, progress lines, checkpoints that load in
-either package, a device-memory preflight and the command line
-(`python -m tsxcount_tpu_torch count`).  Multi-GPU sharding is not ported
-yet (ROADMAP.md Queue 1 item 12).
+either package, a device-memory preflight, the command line
+(`python -m tsxcount_tpu_torch count`) and the sharded counter over
+torch.distributed ranks, one shard and one device each (the command
+line's default at one shard).
 
 Public surface:
     KmerSpec                   — k-mer geometry (lanes, masks)
     KmerCounter                — end-to-end streaming counter (file -> counts)
+    ShardedKmerCounter         — the same API over n_shards ranks
     CountStore                 — sorted-unique device count table
     LSMStore                   — geometric cascade of CountStores
     QuotientTable              — jellyfish-style reprobing hash table
@@ -38,12 +40,14 @@ from tsxcount_tpu_torch.ops.canonical import canonicalize
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 from tsxcount_tpu_torch.core.counter import KmerCounter
 from tsxcount_tpu_torch.core.checkpoint import load_counter, save_counter
+from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
 
 __version__ = "0.1.0"
 
 __all__ = [
     "KmerSpec",
     "KmerCounter",
+    "ShardedKmerCounter",
     "CountStore",
     "LSMStore",
     "QuotientTable",

@@ -8,14 +8,18 @@ the table is full, 200 on a `--checkabort` mismatch.  What differs:
   * `--platform cuda` (the default; `gpu` is an alias) or `cpu`.  Where no
     GPU is present the run stops with an ERROR line unless `--platform cpu`
     is given: it never falls back to the CPU by itself.
-  * `--shards 0` and `--shards 1` both run the single-GPU KmerCounter (the
-    JAX package's `--shards 1` runs its sharded pipeline on one device,
-    with the same counts); `--shards 2` and up are refused until the
-    sharded pipeline is ported (ROADMAP Queue 1 item 12), and
-    `--routing-hash`, which only that pipeline reads, is ignored with a
-    warning.
-  * `--hash-first gf2` and `--mix-prefix` are refused, as the counter
-    refuses them.
+  * `--shards N` (default 1) runs the sharded counter
+    (parallel/sharded.py) over N ranks, one shard and one device each;
+    `--shards 0` runs the plain KmerCounter.  From N = 2 the command
+    starts the N rank processes itself (cuda:0 .. cuda:N-1, NCCL; with
+    `--platform cpu`, CPU ranks on gloo), unless it already runs as one
+    of N ranks under torchrun.  Every rank counts its share of the input
+    and takes part in every read; rank 0 alone prints, dumps, checks and
+    writes the state, and every rank exits with the same code.
+  * `--hash-first gf2`, `--mix-prefix` and `--routing-hash gf2` are
+    refused (the "Do not port" list); `--routing-hash` is ignored with a
+    warning at `--shards 0`, and `--hash-first` at `--shards` >= 1, as
+    the JAX command line ignores it there.
   * `--profile DIR` writes a torch.profiler trace of the count and prints
     the device's busy time over it.
   * the memory preflight models the port's buffers (utils/hbm.py) against
@@ -28,8 +32,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
@@ -67,9 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--dump", default=None,
                    help="write full counts as kmer\\tcount TSV")
     c.add_argument("--shards", type=int, default=1,
-                   help="0 or 1: the single-GPU counter; 2 and up are "
-                        "refused until the sharded pipeline is ported "
-                        "(ROADMAP Queue 1 item 12)")
+                   help="table shards, one a rank and device (default 1: "
+                        "the sharded counter on one device); 0 = the "
+                        "plain KmerCounter.  N >= 2 starts N ranks (or "
+                        "joins torchrun's N)")
     c.add_argument("--batch-words", type=int, default=1 << 20,
                    help="uint32 words per device batch (16 bases/word)")
     c.add_argument("--read-len", type=int, default=0,
@@ -105,9 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--identity-hash", action="store_true",
                    help="debug: identity hash instead of random GF(2)")
     c.add_argument("--routing-hash", choices=("mix", "gf2"), default=None,
-                   help="sharded routing bijection; ignored until the "
-                        "sharded pipeline is ported (ROADMAP Queue 1 item "
-                        "12)")
+                   help="sharded routing bijection: 'mix' (the lane mix, "
+                        "default); 'gf2' is refused (not ported)")
     c.add_argument("--hash-first", choices=("auto", "mix", "gf2", "off"),
                    default="auto",
                    help="sort backend: map keys through the lane-mix "
@@ -134,6 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "GPU the run stops unless --platform cpu is given")
     c.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the count to DIR")
+    # set on the rank processes that --shards N starts: rank/N/init method
+    c.add_argument("--rank-of", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -169,7 +179,63 @@ def _profiled(out_dir: str, device):
     return ctx()
 
 
-def cmd_count(args: argparse.Namespace) -> int:
+RANK_GRACE_S = 60  # after one rank fails, the others' time to end
+
+
+def _checkpoint_shards(path: str) -> int:
+    """n_shards of a checkpoint (0: the plain counter's)."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as data:
+        return json.loads(str(data["meta"])).get("n_shards", 0)
+
+
+def _launch_ranks(argv: list[str], n: int) -> int:
+    """Run this command as n rank processes, joined by a file-based
+    process group in a fresh temporary directory.  Returns rank 0's exit
+    code, or another rank's where rank 0's is 0; once a rank fails, the
+    others get RANK_GRACE_S to end before they are killed (a rank that
+    died leaves the rest waiting in a collective)."""
+    with tempfile.TemporaryDirectory(prefix="tsxcount-ranks-") as tmp:
+        init = f"file://{tmp}/pg"
+        env = dict(os.environ)
+        root = str(Path(__file__).resolve().parent.parent)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in [env.get("PYTHONPATH")] if p])
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tsxcount_tpu_torch", *argv,
+             "--rank-of", f"{r}/{n}/{init}"], env=env) for r in range(n)]
+        failed_at = None
+        while any(p.poll() is None for p in procs):
+            if failed_at is None and any(p.poll() for p in procs):
+                failed_at = time.monotonic()
+            if (failed_at is not None
+                    and time.monotonic() - failed_at > RANK_GRACE_S):
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+            time.sleep(0.05)
+        codes = [p.wait() for p in procs]
+    return codes[0] or next((c for c in codes if c), 0)
+
+
+def _join_rank(rank_of: str, device):
+    """Join the rank processes' group (--rank-of r/N/init).  Returns
+    (this rank, its device: cuda:r, or the CPU)."""
+    import torch
+
+    from tsxcount_tpu_torch.parallel.mesh import init_shard_group
+
+    rank, world, init = rank_of.split("/", 2)
+    rank, world = int(rank), int(world)
+    if device.type == "cpu":  # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    group = init_shard_group(world, device.type, init_method=init, rank=rank)
+    return rank, group.device
+
+
+def cmd_count(args: argparse.Namespace, argv: list[str] | None = None
+              ) -> int:
     import torch
 
     device = torch.device(PLATFORMS[args.platform])
@@ -177,11 +243,38 @@ def cmd_count(args: argparse.Namespace) -> int:
         print("ERROR: no CUDA device (torch.cuda.is_available() is False); "
               "pass --platform cpu to count on the CPU", file=sys.stderr)
         return 2
-    if args.shards >= 2:
-        print(f"ERROR: --shards {args.shards}: the sharded multi-GPU "
-              f"pipeline is not ported yet (ROADMAP Queue 1 item 12); use "
-              f"--shards 0 or 1", file=sys.stderr)
-        return 2
+    if args.load_state:
+        # the checkpoint's own shape (shards, backend, k, l) wins
+        args.shards = _checkpoint_shards(args.load_state)
+    rank = 0
+    if args.rank_of is not None:
+        rank, device = _join_rank(args.rank_of, device)
+    elif args.shards >= 2:
+        world = os.environ.get("WORLD_SIZE")
+        if world is not None and int(world) != args.shards:
+            print(f"ERROR: --shards {args.shards} under a launcher of "
+                  f"{world} ranks", file=sys.stderr)
+            return 2
+        if (device.type == "cuda"
+                and torch.cuda.device_count() < args.shards):
+            print(f"ERROR: --shards {args.shards} needs {args.shards} "
+                  f"CUDA devices, {torch.cuda.device_count()} present; "
+                  f"pass --platform cpu to run the ranks on the CPU",
+                  file=sys.stderr)
+            return 2
+        if world is None:
+            return _launch_ranks(
+                sys.argv[1:] if argv is None else argv, args.shards)
+        # one of torchrun's ranks
+        rank = int(os.environ.get("RANK", 0))
+        device = torch.device(f"cuda:{os.environ.get('LOCAL_RANK', 0)}"
+                              if device.type == "cuda" else "cpu")
+    if rank:  # rank 0 alone prints
+        sys.stdout = sys.stderr = open(os.devnull, "w")
+    return _count(args, device, rank == 0)
+
+
+def _count(args: argparse.Namespace, device, rank0: bool) -> int:
     # deferred imports keep --help quick
     from tsxcount_tpu_torch.core.counter import (
         CheckAbort,
@@ -191,40 +284,50 @@ def cmd_count(args: argparse.Namespace) -> int:
     from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED
     from tsxcount_tpu_torch.utils.goldenfile import write_golden
 
-    if args.shards == 1:
-        print("note: --shards 1 runs the single-GPU counter here; the "
-              "sharded pipeline comes with ROADMAP Queue 1 item 12",
-              file=sys.stderr)
-    if args.routing_hash is not None:
-        print("warning: --routing-hash is ignored: it selects the sharded "
-              "routing bijection (ROADMAP Queue 1 item 12)", file=sys.stderr)
+    if args.mix_prefix or args.hash_first == "gf2":
+        # refused whatever --shards says (KmerCounter names the list)
+        raise NotImplementedError(
+            "--mix-prefix and --hash-first gf2 are on ROADMAP.md's 'Do not "
+            "port' list; use tsxcount_tpu for them")
+    if args.shards == 0 and args.routing_hash is not None:
+        print("warning: --routing-hash is ignored with --shards 0 (the "
+              "plain counter routes nothing)", file=sys.stderr)
+    if args.shards >= 1 and args.hash_first != "auto":
+        print("warning: --hash-first is ignored with --shards >= 1 (the "
+              "sharded stream hashes for routing; use --shards 0 for the "
+              "plain counter)", file=sys.stderr)
+    kwargs = dict(
+        k=args.k, l=args.l, s=args.s, backend=args.mode,
+        batch_words=args.batch_words, n_policy=args.n_policy,
+        hash_seed=(DEFAULT_SEED if args.hash_seed is None
+                   else args.hash_seed),
+        canonical=args.canonical, merge_every=args.merge_every,
+        lsm=args.lsm, lsm_growth=args.lsm_growth, threads=args.threads,
+        read_len_hint=args.read_len, progress_every=args.progress,
+        collapse_homopolymers=bool(args.hp_collapse), device=device,
+    )
     t0 = time.perf_counter()
     if args.load_state:
-        # the checkpoint's own shape (backend, k, l, options) wins
         from tsxcount_tpu_torch.core.checkpoint import load_counter
 
-        counter = load_counter(args.load_state, batch_words=args.batch_words,
-                               device=device)
+        counter = load_counter(args.load_state,
+                               batch_words=args.batch_words, device=device)
         if args.hp_collapse is not None:
             # an explicit flag overrides the checkpoint's collapse setting
             counter.collapse_hp = args.hp_collapse
             counter.packer.collapse = args.hp_collapse and counter.spec.k >= 2
+    elif args.shards >= 1:
+        from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+        counter = ShardedKmerCounter(
+            n_shards=args.shards, identity_hash=args.identity_hash,
+            routing_hash=args.routing_hash or "mix", **kwargs)
     else:
         counter = KmerCounter(
-            k=args.k, l=args.l, s=args.s, backend=args.mode,
-            batch_words=args.batch_words, n_policy=args.n_policy,
-            hash_seed=(DEFAULT_SEED if args.hash_seed is None
-                       else args.hash_seed),
-            identity_hash=args.identity_hash, canonical=args.canonical,
-            merge_every=args.merge_every, lsm=args.lsm,
-            lsm_growth=args.lsm_growth, threads=args.threads,
-            read_len_hint=args.read_len, progress_every=args.progress,
-            collapse_homopolymers=bool(args.hp_collapse),
-            mix_prefix=args.mix_prefix,
+            identity_hash=args.identity_hash,
             hash_first={"auto": None, "off": False}.get(args.hash_first,
                                                           args.hash_first),
-            device=device,
-        )
+            **kwargs)
 
     # config echo, like the reference's startup lines
     print(f"k={args.k} l={args.l} s={args.s} mode={args.mode} "
@@ -269,13 +372,15 @@ def cmd_count(args: argparse.Namespace) -> int:
     if args.save_state:
         from tsxcount_tpu_torch.core.checkpoint import save_counter
 
-        save_counter(counter, args.save_state)
+        save_counter(counter, args.save_state)  # sharded: rank 0 writes
         print(f"saved state to {args.save_state}", file=sys.stderr)
 
     if args.dump:
-        write_golden(args.dump, counter.to_dict(), sort=True)
-        print(f"dumped {counter.distinct} kmers to {args.dump}",
-              file=sys.stderr)
+        counts = counter.to_dict()  # a collective on every rank
+        distinct = counter.distinct
+        if rank0:
+            write_golden(args.dump, counts, sort=True)
+        print(f"dumped {distinct} kmers to {args.dump}", file=sys.stderr)
 
     if args.check or args.checkabort:
         golden = args.golden or f"{args.input}.{args.k}.count"
@@ -301,7 +406,7 @@ def cmd_count(args: argparse.Namespace) -> int:
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     try:
-        return cmd_count(args)
+        return cmd_count(args, argv)
     except FileNotFoundError as e:
         print(f"ERROR: file not found: {e.filename or e}", file=sys.stderr)
         return 2

@@ -148,3 +148,16 @@ def int_to_counts(value: int):
         (value >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK,
         (value >> (2 * COUNT_DIGIT_BITS)) & COUNT_DIGIT_MASK,
     )
+
+
+def route_capacity(positions: int, n_shards: int,
+                   capacity_factor: float) -> tuple[int, int]:
+    """(route_cap, align) of the sharded counter: the rows a (source,
+    destination) pair sends a step, a balanced split of one batch's
+    positions times capacity_factor, rounded up as the JAX package rounds
+    it (to 16384 when large, else 1024: its TPU kernels' tiles; kept so
+    that both spill alike)."""
+    cap = int(capacity_factor * positions / n_shards)
+    cap = min(max(16, cap), positions)
+    align = 16384 if cap >= 16384 else 1024
+    return -(-cap // align) * align, align

@@ -11,10 +11,16 @@ so saving a GB-sized state costs the disk write and no zlib pass on one
 host core; the state is converted to and from the JAX layout on the
 counter's device.
 
-Refused loudly: sharded files (`n_shards` >= 1; multi-GPU is ROADMAP
-Queue 1 item 12) and states of stores the port does not build (the
-`mix_prefix` extended keys and the `hash_first="gf2"` image, on ROADMAP's
-"Do not port" list).
+A sharded counter (parallel/sharded.py; `n_shards` >= 1 in the file,
+0 for KmerCounter) writes the JAX package's stacked arrays: every field
+the shards' states concatenated in rank order (scalars become vectors of
+n_shards).  Saving and loading are collectives: rank 0 gathers the
+shards' states and writes the file; on load every rank reads the file and
+takes its own shard's row.
+
+Refused loudly: states of stores the port does not build (the
+`mix_prefix` extended keys, the `hash_first="gf2"` image and the sharded
+`routing_hash="gf2"` image, on ROADMAP's "Do not port" list).
 """
 
 from __future__ import annotations
@@ -30,10 +36,19 @@ from tsxcount_tpu_torch.io.packer import PackStats
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 
 FORMAT_VERSION = 3
+_SHARD_SCALARS = ("n", "overflowed", "spilled")  # one value a shard
+
+
+def _is_sharded(counter) -> bool:
+    return hasattr(counter, "n_shards")
 
 
 def save_counter(counter, path: str | Path) -> None:
-    """Serialize a KmerCounter (either backend, flat or LSM) to .npz."""
+    """Serialize a KmerCounter or ShardedKmerCounter (either backend, flat
+    or LSM) to .npz.  Sharded: every rank calls it, rank 0 writes."""
+    if _is_sharded(counter):
+        _save_sharded(counter, path)
+        return
     meta = {
         "format": FORMAT_VERSION,
         "k": counter.spec.k,
@@ -72,6 +87,92 @@ def save_counter(counter, path: str | Path) -> None:
     np.savez(path, meta=json.dumps(meta), **arrays)
 
 
+def _save_sharded(counter, path: str | Path) -> None:
+    arrays = shard_states_to_reference(counter)
+    stats = counter._global_stats()
+    if counter.rank == 0:
+        _write_sharded(counter, path, stats, arrays)
+    counter._sum([0])  # no rank returns before the file is whole
+
+
+def shard_states_to_reference(counter) -> dict[str, np.ndarray] | None:
+    """Every shard's state as the JAX package's stacked state fields: the
+    shards' numpy arrays (`state_to_reference`) concatenated in rank order,
+    a scalar field becoming a vector of n_shards.  On rank 0; None on the
+    others.  Folds every pending batch, run and spill carry first.
+    Collective."""
+    rows = {name: _gather_shards(np.atleast_1d(arr), counter)
+            for name, arr in counter._shard_reference().items()}
+    if counter.rank:
+        return None
+    return {name: np.concatenate(parts) for name, parts in rows.items()}
+
+
+def shard_states_from_reference(counter, arrays) -> None:
+    """Load this rank's row of the JAX package's stacked state fields (a
+    mapping of numpy arrays, as a checkpoint holds them) into the sharded
+    counter's shard."""
+    n, rank = counter.n_shards, counter.rank
+
+    def row(name):
+        arr = np.asarray(arrays[name])
+        if name in _SHARD_SCALARS:
+            return arr[rank]
+        return np.split(arr, n)[rank]
+
+    counter._load_shard_reference(
+        {name: row(name) for name in counter._reference_fields})
+
+
+def _write_sharded(counter, path, stats, state) -> None:
+    meta = {
+        "format": FORMAT_VERSION,
+        "k": counter.spec.k,
+        "l": counter.l,
+        "s": counter.s,
+        "backend": counter.backend,
+        "n_policy": counter.n_policy,
+        "identity_hash": False,
+        "canonical": counter.canonical,
+        "collapse_hp": counter.collapse_hp,
+        "hash_first": False,
+        "mix_prefix": False,
+        "stats": dataclasses.asdict(stats),
+        "batches_processed": counter.batches_processed,
+        "lsm": counter.lsm,
+        "lsm_growth": counter.lsm_growth,
+        "merge_every": counter.merge_every,
+        "n_shards": counter.n_shards,
+        "routing_hash": counter.routing_hash,
+        "max_reprobes": (counter.table.max_reprobes
+                         if counter.backend == "table" else 0),
+    }
+    # the routing map is the lane mix; the JAX loader reads these
+    hash_fn = GF2Hash(counter.spec, seed=counter.hash_seed)
+    arrays = {f"state_{name}": val for name, val in state.items()}
+    arrays["hash_matrix"] = hash_fn.matrix
+    arrays["hash_inverse"] = hash_fn.inverse
+    np.savez(path, meta=json.dumps(meta), **arrays)
+
+
+def _gather_shards(arr: np.ndarray, counter) -> list[np.ndarray] | None:
+    """Every rank's `arr` (one shape on every rank), in rank order, on
+    rank 0 (None elsewhere), through the counter's process group."""
+    import torch.distributed as dist
+
+    if counter.n_shards == 1:
+        return [arr]
+    t = torch.from_numpy(np.ascontiguousarray(arr).view(
+        np.uint8)).to(counter.device)
+    parts = ([torch.empty_like(t) for _ in range(counter.n_shards)]
+             if counter.rank == 0 else None)
+    dist.gather(t, parts, dst=0)
+    if parts is None:
+        return None
+    return [p.cpu().numpy().view(arr.dtype).reshape(arr.shape)
+            for p in parts]
+
+
 def _state_array(name: str, data) -> np.ndarray:
     """One state field, migrating old table layouts: files that stored
     keys/digits/used as three arrays, or the combined rows as [slots, C],
@@ -93,12 +194,13 @@ def _state_array(name: str, data) -> np.ndarray:
 
 
 def _refuse(meta) -> None:
-    if meta.get("n_shards", 0):
+    if meta.get("n_shards", 0) and (
+            meta.get("routing_hash", "gf2") != "mix"
+            or meta.get("identity_hash", False)):
         raise NotImplementedError(
-            f"checkpoint of a sharded counter (n_shards="
-            f"{meta['n_shards']}): multi-GPU is not ported to "
-            f"tsxcount_tpu_torch yet (ROADMAP.md Queue 1 item 12); load it "
-            f"with tsxcount_tpu")
+            "sharded checkpoint of the GF(2) routing image (routing_hash "
+            "'gf2', or identity_hash): on ROADMAP.md's 'Do not port' list; "
+            "load it with tsxcount_tpu")
     if meta.get("mix_prefix", False):
         raise NotImplementedError(
             "checkpoint with mix_prefix=True: the extended-key store is on "
@@ -112,11 +214,15 @@ def _refuse(meta) -> None:
 
 
 def load_counter(path: str | Path, batch_words: int = 1 << 16,
-                 device: str | torch.device = "cuda"):
-    """Rebuild a KmerCounter from an .npz checkpoint, ready to resume.
+                 device: str | torch.device | None = "cuda"):
+    """Rebuild a KmerCounter, or a ShardedKmerCounter (every rank of a
+    group of the file's n_shards calls it), from an .npz checkpoint,
+    ready to resume.
 
-    The file's shape (backend, k, l, options) wins; only the ingest batch
-    size, which is not part of the state, and the device are the caller's.
+    The file's shape (shards, backend, k, l, options) wins; only the
+    ingest batch size, which is not part of the state, and the device
+    (sharded: None is the rank's own card) are the caller's; a sharded
+    load joins the process group that exists (one shard needs none).
     """
     from tsxcount_tpu_torch.core.counter import KmerCounter
 
@@ -125,6 +231,8 @@ def load_counter(path: str | Path, batch_words: int = 1 << 16,
         if meta["format"] > FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint format {meta['format']}")
         _refuse(meta)
+        if meta.get("n_shards", 0):
+            return _load_sharded(meta, data, batch_words, device)
         counter = KmerCounter(
             k=meta["k"], l=meta["l"], s=meta["s"], backend=meta["backend"],
             batch_words=batch_words, n_policy=meta["n_policy"],
@@ -150,4 +258,33 @@ def load_counter(path: str | Path, batch_words: int = 1 << 16,
                 {name: _state_array(name, data) for name in names})
         counter.packer.stats = PackStats(**meta["stats"])
         counter.batches_processed = meta["batches_processed"]
+    return counter
+
+
+def _load_sharded(meta, data, batch_words, device):
+    """Rebuild this rank's shard: its row of every stacked array."""
+    from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    if meta["format"] < 3:
+        raise ValueError(
+            "sharded checkpoints written before format 3 store raw keys; "
+            "this version shards by hashed key — re-count to regenerate")
+    n = meta["n_shards"]
+    counter = ShardedKmerCounter(
+        k=meta["k"], n_shards=n, l=meta["l"], s=meta["s"],
+        backend=meta["backend"], batch_words=batch_words,
+        n_policy=meta["n_policy"], canonical=meta.get("canonical", False),
+        collapse_homopolymers=meta.get("collapse_hp", True),
+        lsm=meta.get("lsm", False) or None,  # False: the counter's rule
+        lsm_growth=meta.get("lsm_growth", 8),
+        merge_every=meta.get("merge_every", 4),
+        max_reprobes=meta.get("max_reprobes") or 64,
+        device=device,
+    )
+    shard_states_from_reference(counter, {
+        name: _state_array(name, data) for name in counter._reference_fields})
+    # the file's ingest stats are the whole stream's: one rank holds them
+    if counter.rank == 0:
+        counter.packer.stats = PackStats(**meta["stats"])
+    counter.batches_processed = meta["batches_processed"]
     return counter

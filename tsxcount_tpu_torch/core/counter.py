@@ -126,6 +126,38 @@ class PrefixCollision(RuntimeError):
     count_file."""
 
 
+def table_insert(table: QuotientTable, state, uc: UniqueCounts):
+    """Insert a batch histogram into the table with the JAX package's
+    host schedule, which decides which arbitration each row meets and so
+    the table's layout: round 0 at the narrowest of P/4, P/2 (at least
+    256) that holds the batch's distinct keys, else P; each later round
+    at the next power of two >= the rows left (at least 256); the plain
+    tail once w * slot_cols <= 2^18 or from round 6 on.  One host read
+    of the distinct count and one of each round's rows left."""
+    p = uc.keys.shape[0]
+    n = int(uc.n_unique)
+    width = p
+    for w in (p // 4, p // 2):
+        if 256 <= w and n <= w:
+            width = w
+            break
+    st, carry, _, n_left = table.split_round(
+        state, 0, *table.round0_args(
+            uc.keys[:width], uc.counts[:width], uc.valid[:width]))
+    r = 1
+    while True:
+        f = int(n_left)
+        if f == 0:
+            return table.renorm(st)
+        w = min(width, max(256, 1 << (f - 1).bit_length()))
+        if w * table.slot_cols <= _TABLE_RESIDUE_ELEMS or r >= 6:
+            return table.residue_phase(st, carry, r, w)
+        p0, cl, c, a = carry
+        st, carry, _, n_left = table.split_round(
+            st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
+        r += 1
+
+
 class IngestProgressMixin:
     """One stderr progress line every `progress_every` batches (off at 0)."""
 
@@ -160,12 +192,17 @@ class HpBonusMixin:
     the key is in the store; the owed count is added on the host wherever
     counts leave the store (get_counts, items, check).  No device work."""
 
+    def _hp_stats(self):
+        """The ingest stats that owe the bonus (the sharded counter sums
+        every rank's)."""
+        return self.packer.stats
+
     def _hp_owed_emit(self) -> dict[str, int]:
         """Owed bonus by the STORED k-mer string (the canonical one in
         canonical mode): the export's view."""
         k = self.spec.k
         out: dict[str, int] = {}
-        for c, b in enumerate(self.packer.stats.hp_bonus):
+        for c, b in enumerate(self._hp_stats().hp_bonus):
             if b:
                 s = "ACGT"[min(c, 3 - c) if self.canonical else c] * k
                 out[s] = out.get(s, 0) + int(b)
@@ -379,38 +416,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         )
 
     def _table_step(self, buf: torch.Tensor) -> None:
-        """Insert one batch into the table with the JAX package's host
-        schedule, which decides which arbitration each row meets and so
-        the table's layout: round 0 at the narrowest of P/4, P/2 (at least
-        256) that holds the batch's distinct keys, else P; each later round
-        at the next power of two >= the rows left (at least 256); the plain
-        tail once w * slot_cols <= 2^18 or from round 6 on."""
-        uc = self._dedupe(buf)
-        table = self.table
-        p = uc.keys.shape[0]
-        n = int(uc.n_unique)
-        width = p
-        for w in (p // 4, p // 2):
-            if 256 <= w and n <= w:
-                width = w
-                break
-        st, carry, _, n_left = table.split_round(
-            self.state, 0, *table.round0_args(
-                uc.keys[:width], uc.counts[:width], uc.valid[:width]))
-        r = 1
-        while True:
-            f = int(n_left)
-            if f == 0:
-                self.state = table.renorm(st)
-                return
-            w = min(width, max(256, 1 << (f - 1).bit_length()))
-            if w * table.slot_cols <= _TABLE_RESIDUE_ELEMS or r >= 6:
-                self.state = table.residue_phase(st, carry, r, w)
-                return
-            p0, cl, c, a = carry
-            st, carry, _, n_left = table.split_round(
-                st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
-            r += 1
+        self.state = table_insert(self.table, self.state,
+                                  self._dedupe(buf))
 
     def _consume_bufs(self, bufs: Iterable[torch.Tensor],
                       stats_fn=None) -> None:

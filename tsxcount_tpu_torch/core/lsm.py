@@ -5,9 +5,14 @@ once the table is much larger than a flush, that pass over mostly idle rows
 dominates.  The LSM layout keeps a geometric cascade of stores L0..Lm
 (|L_{i+1}| = growth * |L_i|, the top one the full capacity): each flush
 folds into L0, and level i is absorbed into level i+1 (CountStore.absorb,
-one kernel-3 merge with the counts summed) every growth^(i+1) flushes
-(L0 holds `growth` flushes).  Absorbing is an exact sorted
-merge, so counts stay exact.
+one kernel-3 merge with the counts summed) every fill * growth^i flushes,
+where L0 holds `fill` flushes.  Absorbing is an exact sorted merge, so
+counts stay exact.
+
+Two geometries share the cascade, each its JAX counter's: the single-GPU
+counter's L0 holds `growth` flushes (fill = growth), the sharded
+counter's one flush rounded up to the routing alignment
+(`level_capacities(..., align=)`).
 
 The cascade schedule is host-side integer math (no device read), and it is
 the JAX package's (`tsxcount_tpu/core/lsm.py`), so both packages hold the
@@ -34,30 +39,37 @@ class LSMStore:
     """Geometric cascade of CountStores with exact cross-level merges.
 
     capacity: distinct keys of the top level.  flush_rows: rows of one
-    flush (merge_every * positions).  L0 holds `growth` flushes
-    (flush_rows * growth rows), as the JAX counter builds it; the schedule
-    counts flushes, not rows, so a short first flush changes nothing (the
-    JAX counter pads every flush to merge_every histograms instead).
+    flush (merge_every * positions; sharded: merge_every * n_shards *
+    route_cap).  align None: L0 holds `growth` flushes (flush_rows *
+    growth rows), as the JAX counter builds it; else L0 is one flush
+    rounded up to `align`, as the JAX sharded counter builds it.  The
+    schedule counts flushes, not rows, so a short first flush changes
+    nothing (the JAX counters pad every flush to merge_every histograms
+    instead).
     """
 
     def __init__(self, spec: KmerSpec, capacity: int, flush_rows: int,
-                 growth: int = 8, device: str | torch.device = "cuda"):
+                 growth: int = 8, device: str | torch.device = "cuda",
+                 align: int | None = None):
         if growth < 2:
             raise ValueError("growth must be >= 2")
         self.spec = spec
         self.growth = int(growth)
-        self.levels = [CountStore(spec, c, device) for c in
-                       self.level_capacities(capacity, flush_rows, growth)]
+        caps = self.level_capacities(capacity, flush_rows, growth, align)
+        self.levels = [CountStore(spec, c, device) for c in caps]
+        self.fill = max(1, caps[0] // int(flush_rows))  # flushes L0 holds
         self.n_ops = self.levels[0].n_ops
         self._flushes = 0  # L0 merges, which drive the cascade
         self.absorbs = 0   # absorb merges run (for reports)
 
     @staticmethod
-    def level_capacities(capacity: int, flush_rows: int, growth: int
-                         ) -> list[int]:
-        """Rows of each level: L0 = flush_rows * growth, each next one
-        `growth` times larger, the top one `capacity`."""
-        caps = [int(flush_rows) * growth]
+    def level_capacities(capacity: int, flush_rows: int, growth: int,
+                         align: int | None = None) -> list[int]:
+        """Rows of each level: L0 = flush_rows * growth (align None) or
+        flush_rows rounded up to `align`, each next one `growth` times
+        larger, the top one `capacity`."""
+        caps = [int(flush_rows) * growth if align is None
+                else -(-int(flush_rows) // align) * align]
         while caps[-1] * growth < capacity:
             caps.append(caps[-1] * growth)
         return caps + [int(capacity)]
@@ -83,14 +95,14 @@ class LSMStore:
                       ucounts: torch.Tensor, uvalid: torch.Tensor
                       ) -> list[StoreState]:
         """Fold R batch histograms into L0, then cascade full levels
-        upward: level i absorbs into level i+1 every growth^(i+1) flushes,
-        checked bottom-up (carry-style), so level i+1 takes at most
-        `growth` images of level i between its own cascades.  No host
-        synchronisation.  Updates `states` in place."""
+        upward: level i absorbs into level i+1 every fill * growth^i
+        flushes, checked bottom-up (carry-style), so level i+1 takes at
+        most `growth` images of level i between its own cascades.  No
+        host synchronisation.  Updates `states` in place."""
         states[0] = self.levels[0].merge_stacked(states[0], ukeys, ucounts,
                                                  uvalid)
         self._flushes += 1
-        period = self.growth
+        period = self.fill
         for i in range(len(self.levels) - 1):
             if self._flushes % period:
                 break  # higher levels cascade only when lower ones did
@@ -122,6 +134,12 @@ class LSMStore:
             raise RuntimeError("call collapse() first: the lower levels "
                                "hold keys")
         return states[-1]
+
+    def export(self, states: list[StoreState]
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The top level's device-side export; raises unless the lower
+        levels are empty (collapse first)."""
+        return self.levels[-1].export(self._top(states))
 
     def to_host(self, states: list[StoreState], key_map=None
                 ) -> tuple[np.ndarray, np.ndarray, int]:

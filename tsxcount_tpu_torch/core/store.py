@@ -172,18 +172,25 @@ class CountStore:
         found = (lo < state.n) & keys_equal(rows(idx), q)
         return torch.where(found, state.counts[idx], 0), found
 
+    def export(self, state: StoreState
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(keys int32 [n, lanes], counts int64 [n]) of the held keys, in
+        the store's order, on the state's device."""
+        n = int(state.n)
+        keys, _ = unpack_flag_key(list(state.keys[:, :n]), self.spec)
+        return keys, state.counts[:n]
+
     def to_host(self, state: StoreState, key_map=None
                 ) -> tuple[np.ndarray, np.ndarray, int]:
         """(keys uint32 [n, lanes], counts int64 [n], n) on the host, in
         the store's order.  key_map: the bijection whose images the store
         holds (ops/mix.py LaneMixBijection); the keys are mapped back on
         the device before the copy."""
-        n = int(state.n)
-        keys, _ = unpack_flag_key(list(state.keys[:, :n]), self.spec)
+        keys, counts = self.export(state)
+        n = counts.shape[0]
         if key_map is not None and n:
             keys = key_map.inv_apply(keys)
-        counts = state.counts[:n].cpu().numpy()
-        return keys.cpu().numpy().view(np.uint32), counts, n
+        return keys.cpu().numpy().view(np.uint32), counts.cpu().numpy(), n
 
     # --- exchange with the JAX package's StoreState ---
 

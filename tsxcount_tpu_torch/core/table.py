@@ -411,29 +411,37 @@ class QuotientTable:
         i = torch.arange(self.slots, device=state.slots.device)
         return self._unhash(state, i), self.state_used(state)
 
-    def to_host(self, state: TableState) -> tuple[np.ndarray, np.ndarray, int]:
-        """(kmer keys uint32 [n, lanes], counts int64 [n], n), used slots
-        in slot order, one chunk of slots at a time (device work and host
-        traffic in proportion to the used slots)."""
+    def export(self, state: TableState, device=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kmers int32 [n, lanes], counts int64 [n]) of the used slots in
+        slot order, reconstructed one chunk of slots at a time (device work
+        in proportion to the used slots), each chunk moved to `device`
+        (default: the state's)."""
         lanes = self.spec.lanes
         used_col = self._col(state.slots, self.slot_cols - 1)
-        kmer_parts, digit_parts = [], []
+        kmer_parts, count_parts = [], []
         for start in range(0, self.slots, self._EXPORT_CHUNK):
             used = used_col[start : start + self._EXPORT_CHUNK] != 0
             idx = torch.nonzero(used).squeeze(1) + start
             if idx.numel() == 0:
                 continue
-            kmer_parts.append(self._unhash(state, idx).cpu())
-            digit_parts.append(torch.stack(
-                [self._col(state.slots, lanes + j)[idx]
-                 for j in range(COUNT_DIGITS)], dim=1).cpu())
+            d = [self._col(state.slots, lanes + j)[idx].to(torch.int64)
+                 for j in range(COUNT_DIGITS)]
+            kmer_parts.append(self._unhash(state, idx).to(device))
+            count_parts.append((d[0] + (d[1] << COUNT_DIGIT_BITS)
+                                + (d[2] << 2 * COUNT_DIGIT_BITS)).to(device))
         if not kmer_parts:
-            return (np.zeros((0, lanes), np.uint32), np.zeros(0, np.int64), 0)
-        kmers = torch.cat(kmer_parts).numpy().view(np.uint32)
-        d = torch.cat(digit_parts).numpy().astype(np.int64)
-        counts = (d[:, 0] + (d[:, 1] << COUNT_DIGIT_BITS)
-                  + (d[:, 2] << 2 * COUNT_DIGIT_BITS))
-        return kmers, counts, len(kmers)
+            dev = device if device is not None else state.slots.device
+            return (torch.zeros((0, lanes), dtype=torch.int32, device=dev),
+                    torch.zeros(0, dtype=torch.int64, device=dev))
+        return torch.cat(kmer_parts), torch.cat(count_parts)
+
+    def to_host(self, state: TableState) -> tuple[np.ndarray, np.ndarray, int]:
+        """(kmer keys uint32 [n, lanes], counts int64 [n], n), used slots
+        in slot order (`export`, each chunk copied to the host as it is
+        made)."""
+        kmers, counts = self.export(state, device="cpu")
+        return kmers.numpy().view(np.uint32), counts.numpy(), len(counts)
 
     def fill_factor(self, state: TableState) -> float:
         """Occupancy ratio."""

@@ -141,14 +141,18 @@ def is_gzip(path: str | Path) -> bool:
         return f.read(2) == b"\x1f\x8b"
 
 
-def split_ranges(path: str | Path, n: int) -> list[tuple[int, int]]:
-    """Split a file into n contiguous byte ranges.  Record-boundary
-    alignment is the native parser's job (resync), so plain equal byte
-    splits are correct."""
+def split_ranges(path: str | Path, n: int, byte_start: int = 0,
+                 byte_end: int = -1) -> list[tuple[int, int]]:
+    """Split [byte_start, byte_end) of a file (byte_end -1: to its end)
+    into n contiguous byte ranges.  Record-boundary alignment is the
+    native parser's job (resync), so plain equal byte splits are
+    correct."""
     size = os.path.getsize(path)
-    cuts = [size * i // n for i in range(n + 1)]
+    end = size if byte_end < 0 else min(byte_end, size)
+    start = min(byte_start, end)
+    cuts = [start + (end - start) * i // n for i in range(n + 1)]
     return [(cuts[i], cuts[i + 1]) for i in range(n)
-            if cuts[i + 1] > cuts[i]] or [(0, size)]
+            if cuts[i + 1] > cuts[i]] or [(start, end)]
 
 
 class _Handle:
@@ -224,26 +228,34 @@ class NativeFileReader:
     threads > 1 splits an uncompressed file into byte ranges parsed
     concurrently (each ctypes call releases the GIL); batch order across
     ranges is arrival order — counting is order-invariant.  gzip input
-    degrades to one stream.  collapse: splice homopolymer runs as
-    io/packer.py collapse_homopolymers does (the owed counts go to
-    stats.hp_bonus).  Raises RuntimeError if the parser cannot be built.
+    degrades to one stream.  byte_start / byte_end (-1: the end) read
+    only the records that start in that byte range of an uncompressed
+    file (one rank's share, parallel/distributed.py).  collapse: splice
+    homopolymer runs as io/packer.py collapse_homopolymers does (the owed
+    counts go to stats.hp_bonus).  Raises RuntimeError if the parser
+    cannot be built.
     """
 
     def __init__(self, path: str | Path, batch: BatchSpec,
                  n_policy: str = "drop", seed: int = 0, threads: int = 1,
-                 collapse: bool = False):
+                 collapse: bool = False, byte_start: int = 0,
+                 byte_end: int = -1):
         lib = load_native()
         if not Path(path).exists():
             raise FileNotFoundError(path)
+        ranged = byte_start > 0 or byte_end >= 0
+        if ranged and is_gzip(path):
+            raise ValueError(f"byte-range input splitting needs "
+                             f"uncompressed input ({path} is gzip)")
         self.batch = batch
         self.stats = PackStats()
         # live_stats (the consumer's thread) must not read a handle that
         # _finalize_stats (the thread that drains the iterator) has closed
         self._lock = threading.Lock()
         if threads > 1 and not is_gzip(path):
-            ranges = split_ranges(path, threads)
+            ranges = split_ranges(path, threads, byte_start, byte_end)
         else:
-            ranges = [(0, -1)]
+            ranges = [(byte_start, byte_end)]
         self._handles = [
             _Handle(lib, path, batch, n_policy, seed + i, s, e,
                     collapse=collapse)

@@ -151,13 +151,18 @@ def sort_uniform_prefix(ops: Sequence[torch.Tensor], spec: KmerSpec
 
 
 def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
-                 uniform_prefix: bool = False) -> UniqueCounts:
+                 uniform_prefix: bool = False,
+                 weights: torch.Tensor | None = None) -> UniqueCounts:
     """Exact histogram of the valid rows of `kmers`.
 
     kmers: (P, lanes) int32 keys, or a sequence of per-lane columns (lsb
     lane first, as extract_kmer_cols returns them).  uniform_prefix: the
     keys carry a uniform >= 64-bit msb prefix (lane-mix images); sort on
-    it and report collisions (sort_uniform_prefix).
+    it and report collisions (sort_uniform_prefix).  weights: int32 [P]
+    multiplicities of the rows (default 1); a key's count is then the sum
+    of its rows' weights, exact at any number of rows a key (the JAX
+    package bounds that number with `max_multiplicity`).  Weighted
+    histograms take the full sort.
     """
     if isinstance(kmers, (list, tuple)):
         ops = pack_flag_key_cols(kmers, ~valid, spec)
@@ -165,6 +170,8 @@ def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
         ops = pack_flag_key(kmers, ~valid, spec)
     p = ops[0].shape[0]
     dev = ops[0].device
+    if weights is not None:
+        return _count_weighted(ops, weights, spec)
     collided = None
     if uniform_prefix:
         ops_sorted, collided = sort_uniform_prefix(ops, spec)
@@ -184,3 +191,31 @@ def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
         keys=ukeys, counts=counts, valid=arange < n_unique,
         n_unique=n_unique, collided=collided,
     )
+
+
+def _count_weighted(ops: Sequence[torch.Tensor], weights: torch.Tensor,
+                    spec: KmerSpec) -> UniqueCounts:
+    """count_unique with row weights: the rows sorted with their weights
+    carried, then each run's sum as a difference of the inclusive int64
+    prefix sums at its ends; kernel 1 compacts the runs' first rows and
+    their sums."""
+    p = ops[0].shape[0]
+    dev = ops[0].device
+    perm = lexsort_perm(ops)
+    ops_sorted = [op[perm] for op in ops]
+    csum = torch.cumsum(weights[perm].to(torch.int64), 0)
+    flag = boundary_flags(ops_sorted)
+    # the row before the next run's first row ends this run
+    last = torch.ones_like(flag)
+    last[:-1] = flag[1:]
+    ends = csum[last]
+    run_sum = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
+    sums = torch.zeros(p, dtype=torch.int64, device=dev)
+    sums[flag] = run_sum
+    rep = compact_flagged(flag, tuple(ops_sorted) + (sums,))
+    n_unique = (flag & ~invalid_bits(ops_sorted, spec)).sum()
+    arange = torch.arange(p, device=dev)
+    ukeys, _ = unpack_flag_key(rep[:-1], spec)
+    counts = torch.where(arange < n_unique, rep[-1], 0).to(torch.int32)
+    return UniqueCounts(keys=ukeys, counts=counts, valid=arange < n_unique,
+                        n_unique=n_unique)

@@ -1,0 +1,710 @@
+"""Sharded counting: hash-prefix routing over all_to_all, one shard a rank.
+
+The port of `tsxcount_tpu/parallel/sharded.py`.  Each rank of the shard
+group (parallel/mesh.py) owns one disjoint range of the hashed key space
+and holds that shard's store on its own device.  A step takes one packed
+batch on every rank:
+
+  * extract the windows, fold them to canonical if asked, and map them
+    through the lane-mix bijection (ops/mix.py, one kernel) BEFORE the
+    dedupe, so that the dedupe sort (kernel 1 compacts its runs) orders
+    the rows by hashed key: the owner of a row, a range partition of the
+    top hash bits (`owner_of_hash`), is then a prefix structure of the
+    sorted rows, and each destination's rows are one contiguous slice;
+  * cut `route_cap` rows a destination (one gather of [n, route_cap]
+    rows) and exchange keys, counts and lengths with one
+    `all_to_all_single` each (int32 words; equal splits);
+  * keep the received runs, and every `merge_every` steps fold them into
+    the shard's store: the sort backend's `CountStore.merge_stacked`
+    (kernels 2 and 3) into the flat store or the LSM's L0 (core/lsm.py;
+    absorbs: kernel 3), the table's weighted re-dedupe of the runs and an
+    insert in split rounds (kernels 5, 4 and 1).
+
+Rows past `route_cap` of a destination are appended to a per-destination
+spill carry, exchanged and folded at the next `flush`; rows past the
+carry too are counted as hard spill.  The hard spill and the dedupe's
+prefix-collision flag accumulate on the device and are summed over the
+ranks once, at `finish`, so that every rank raises the same error at the
+same point (the JAX package keeps one health vector a step).
+
+Every read (distinct, get_counts, items, stats, a checkpoint) is a
+collective: every rank calls it at the same point with the same
+arguments.  Ingest is one too: `count_file` and `add_reads` run their
+steps in rounds whose length is agreed by one all_reduce(MAX), ranks
+short of batches stepping empty ones (parallel/distributed.py), so no
+rank waits in a collective that another never enters.
+
+Stores hold HASHED keys (the bijective image) at n_shards > 1, on the
+table backend at any n_shards, and from 8 lanes up; queries are hashed on
+the way in and exports mapped back on the way out.  A single sort shard
+below 8 lanes stores raw keys and counts what `KmerCounter` counts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import sys
+import time
+from pathlib import Path
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tsxcount_tpu_torch.config import (
+    COUNT_DIGIT_BITS,
+    BatchSpec,
+    KmerSpec,
+    route_capacity,
+)
+from tsxcount_tpu_torch.core.counter import (
+    _HINT_SAMPLE,
+    _QUERY_BATCH,
+    MODE_TO_BACKEND,
+    CheckAbort,
+    CheckResult,
+    HpBonusMixin,
+    IngestProgressMixin,
+    PrefixCollision,
+    TableFull,
+    _not_ported,
+    table_insert,
+)
+from tsxcount_tpu_torch.core.lsm import LSMStore
+from tsxcount_tpu_torch.core.store import REFERENCE_FIELDS as STORE_FIELDS
+from tsxcount_tpu_torch.core.store import CountStore
+from tsxcount_tpu_torch.core.table import REFERENCE_FIELDS as TABLE_FIELDS
+from tsxcount_tpu_torch.core.table import QuotientTable
+from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats, ReadPacker
+from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
+from tsxcount_tpu_torch.ops.count import count_unique
+from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
+from tsxcount_tpu_torch.ops.mix import LaneMixBijection
+from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
+from tsxcount_tpu_torch.parallel.mesh import init_shard_group
+from tsxcount_tpu_torch.utils.goldenfile import read_golden
+from tsxcount_tpu_torch.utils.sequence import (
+    kmers_to_strings,
+    strings_to_kmers,
+)
+
+_STATS_FIELDS = ("reads", "reads_skipped", "bases", "n_bases", "windows",
+                 "batches")
+
+
+def owner_of_hash(top: torch.Tensor, spec: KmerSpec, n_shards: int
+                  ) -> torch.Tensor:
+    """Owner shard (int64) of each hashed key, from its top lane (int32
+    bit patterns): a balanced range partition of the top 16 hash bits,
+    monotone in the lane, for any n_shards."""
+    b = min(16, spec.top_lane_bits)
+    bucket = (top.to(torch.int64) & 0xFFFFFFFF) >> (spec.top_lane_bits - b)
+    return (bucket * n_shards) >> b
+
+
+def _owner_starts(owner_eff: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """starts[o] = first index with owner_eff >= o, for o in [0, n_shards]
+    (int64 [n_shards + 1]); owner_eff is nondecreasing."""
+    targets = torch.arange(n_shards + 1, dtype=owner_eff.dtype,
+                           device=owner_eff.device)
+    return torch.searchsorted(owner_eff, targets)
+
+
+class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
+    """KmerCounter-compatible API over a group of n_shards ranks, this
+    process holding shard `rank`.  The keywords are the JAX package's, in
+    its order; `device` (default: the rank's own card) takes the place of
+    `devices`, and `dist_backend` picks the process group's backend
+    ("nccl" on the card by default, "gloo" with device="cpu"; one shard
+    with no group joins none, parallel/mesh.py)."""
+
+    def __init__(
+        self,
+        k: int,
+        n_shards: int,
+        l: int = 26,
+        s: int = 4,
+        backend: str = "sort",
+        batch_words: int = 1 << 16,
+        n_policy: str = "drop",
+        hash_seed: int = DEFAULT_SEED,
+        identity_hash: bool = False,
+        capacity_factor: float = 2.0,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+        max_reprobes: int = 64,
+        canonical: bool = False,
+        merge_every: int = 4,
+        lsm: bool | None = None,
+        lsm_growth: int = 8,
+        threads: int = 0,
+        prefetch_depth: int = 3,
+        read_len_hint: int = 0,
+        collapse_homopolymers: bool = False,
+        progress_every: int = 0,
+        routing_hash: str = "mix",
+        dist_backend: str | None = None,
+    ):
+        backend = MODE_TO_BACKEND.get(backend, backend)
+        if backend not in ("sort", "table"):
+            raise ValueError(f"unknown backend {backend}")
+        if routing_hash not in ("mix", "gf2"):
+            raise ValueError("routing_hash must be 'mix' or 'gf2'")
+        if routing_hash == "gf2" or identity_hash:
+            # the JAX package's identity_hash forces the GF(2) routing
+            raise _not_ported("routing_hash='gf2' (and identity_hash, "
+                              "which selects it)", "the 'Do not port' list")
+        if lsm_growth < 2:
+            raise ValueError("lsm_growth must be >= 2")
+        self.group = init_shard_group(n_shards, device, dist_backend)
+        self.device = self.group.device
+        self.rank = self.group.rank
+        self.progress_every = max(0, progress_every)
+        self.threads = max(1, threads)
+        self.prefetch_depth = max(1, prefetch_depth)
+        self.spec = KmerSpec(k)
+        self._auto_hint = read_len_hint == 0
+        self.batch = BatchSpec(self.spec, batch_words, read_len_hint or 384)
+        self.l = l
+        self.s = s
+        self.backend = backend
+        self.n_shards = n_shards
+        self.n_policy = n_policy
+        self.seed = seed
+        self.canonical = canonical
+        self.collapse_hp = collapse_homopolymers
+        self.hash_seed = hash_seed
+        self.routing_hash = routing_hash
+        self.route_map = LaneMixBijection(self.spec)
+        # one sort shard below 8 lanes stores raw keys (every row is its
+        # own); the table's slot addressing needs uniform low bits, and
+        # from 8 lanes the image's prefix sort beats the full one
+        self.hashed_store = (n_shards > 1 or backend == "table"
+                             or self.spec.lanes >= 8)
+        self.merge_every = max(1, merge_every) if backend == "sort" else 1
+        l_local = max(1, l - max(0, n_shards.bit_length() - 1))
+        cap_per_shard = max(1, (1 << l) // n_shards)
+        if backend == "table":
+            # the stream is hashed already: the shard table runs an
+            # identity mapping, and its export maps back through the mix
+            self.table = QuotientTable(
+                self.spec, l_local, GF2Hash(self.spec, identity=True),
+                max_reprobes=max_reprobes, device=self.device)
+        self.capacity_factor = capacity_factor
+        self.route_cap, align = route_capacity(self.batch.positions,
+                                               n_shards, capacity_factor)
+        # a batch can overflow a destination: its sorted tail past
+        # route_cap goes to the spill carry, folded at the next flush
+        self._carry_enabled = self.route_cap < self.batch.positions
+        self.lsm = False
+        self.lsm_growth = lsm_growth
+        if backend == "sort":
+            flush_rows = self.merge_every * n_shards * self.route_cap
+            auto = (cap_per_shard * (lsm_growth - 1)
+                    > lsm_growth ** 2 * flush_rows)
+            self.lsm = bool((auto if lsm is None else lsm)
+                            and cap_per_shard > flush_rows * lsm_growth)
+            # the JAX package's sharded cascade: L0 one flush rounded up
+            # to the routing alignment
+            self.store = (LSMStore(self.spec, cap_per_shard, flush_rows,
+                                   lsm_growth, self.device, align=align)
+                          if self.lsm else
+                          CountStore(self.spec, cap_per_shard, self.device))
+        self._mix_full_sort = False  # set after a detected collision
+        self._empty = None
+        self.reset()
+
+    # --- state ---
+
+    def _init_state(self):
+        if self.backend == "table":
+            return self.table.init_state()
+        if self.lsm:
+            self.store.reset_schedule()
+        return self.store.init_state()
+
+    @property
+    def _read_state(self):
+        """The state that reads see (the LSM's top level)."""
+        return self.state[-1] if self.lsm else self.state
+
+    def _init_carry(self):
+        """Zeroed spill carry (keys, counts, rows used) a destination, or
+        None where a batch cannot overflow one."""
+        if not self._carry_enabled:
+            return None
+        n, lanes, dev = self.n_shards, self.spec.lanes, self.device
+        rows = 2 * self.route_cap
+        return (torch.zeros((n, rows, lanes), dtype=torch.int32, device=dev),
+                torch.zeros((n, rows), dtype=torch.int32, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev))
+
+    def reset(self) -> None:
+        """Clear all counts and ingest stats (every rank together)."""
+        self.state = self._init_state()
+        self._carry = self._init_carry()
+        # [hard spill, prefix collisions] of this rank's steps since the
+        # last finish, summed over the ranks there
+        self._health = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._spill_recovered = 0
+        self.packer = self._new_packer()
+        self._pending: list[PackedBatch] = []
+        self._pending_recv: list[tuple] = []
+        self.batches_processed = 0
+        self.elapsed = 0.0
+        self._progress_t0 = None
+        self._progress_last = 0
+
+    def _new_packer(self) -> ReadPacker:
+        return ReadPacker(self.batch, n_policy=self.n_policy, seed=self.seed,
+                          collapse=self.collapse_hp)
+
+    def _adapt_read_len(self, read_lens) -> None:
+        """One-shot sizing of the interval budget (KmerCounter's twin).
+        The exchanged shapes depend on the positions only, so ranks that
+        size it differently still exchange alike."""
+        if not self._auto_hint:
+            return
+        self._auto_hint = False
+        lens = [int(x) for x in read_lens]
+        if not lens:
+            return
+        hint = max(self.spec.k, min(lens))
+        new_batch = dataclasses.replace(self.batch, read_len_hint=hint)
+        if new_batch.max_intervals == self.batch.max_intervals:
+            return
+        self.batch = new_batch
+        self._empty = None
+        stats = self.packer.stats
+        self.packer = self._new_packer()
+        self.packer.stats = stats
+
+    # --- collectives (local where one shard runs with no group) ---
+
+    def _sum(self, values) -> list[int]:
+        """Element-wise sum over the ranks of a list of ints (or an int64
+        tensor on this rank's device)."""
+        t = torch.as_tensor(values, dtype=torch.int64, device=self.device)
+        if self.group.joined:
+            # a copy: the all_reduce works in place (values may be a view
+            # of the state)
+            t = t.clone()
+            dist.all_reduce(t)
+        return t.tolist()
+
+    def _max(self, value: int) -> int:
+        if not self.group.joined:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return int(t.item())
+
+    def _exchange(self, t: torch.Tensor) -> torch.Tensor:
+        """Block o of t's leading axis to rank o; block j of the result
+        came from rank j."""
+        if not self.group.joined:
+            return t
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t.contiguous())
+        return out
+
+    def _gather_rows(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's t (rows of any number, the other axes equal), in
+        rank order, on every rank: the lengths first, then rows padded to
+        the longest."""
+        if not self.group.joined:
+            return [t]
+        n = torch.tensor([t.shape[0]], dtype=torch.int64, device=self.device)
+        lens = [torch.empty_like(n) for _ in range(self.n_shards)]
+        dist.all_gather(lens, n)
+        lens = [int(x) for x in lens]
+        width = max(lens)
+        pad = t.new_zeros((width,) + tuple(t.shape[1:]))
+        pad[: t.shape[0]] = t
+        out = [torch.empty_like(pad) for _ in range(self.n_shards)]
+        dist.all_gather(out, pad)
+        return [o[:m] for o, m in zip(out, lens)]
+
+    def _global_stats(self) -> PackStats:
+        """Ingest stats summed over the ranks (each packs only its share
+        of the input).  Collective."""
+        st = self.packer.stats
+        if not self.group.joined:
+            return st
+        tot = self._sum([getattr(st, f) for f in _STATS_FIELDS]
+                        + list(st.hp_bonus)
+                        + [st.hp_collapsed_bases, st.packed_words])
+        return PackStats(**dict(zip(_STATS_FIELDS, tot[:6])),
+                         hp_bonus=tuple(tot[6:10]),
+                         hp_collapsed_bases=tot[10], packed_words=tot[11])
+
+    # the read-time homopolymer bonus owed by the whole stream
+    _hp_stats = _global_stats
+
+    # --- the routing step ---
+
+    def _put(self, pb: PackedBatch) -> torch.Tensor:
+        # words and validity intervals ride ONE buffer: one copy a batch
+        return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
+
+    def _empty_buf(self) -> torch.Tensor:
+        """The device buffer of an empty batch, which a rank short of
+        batches steps in a round."""
+        if self._empty is None:
+            self._empty = self._put(PackedBatch.empty(self.batch))
+        return self._empty
+
+    def _route(self, buf: torch.Tensor):
+        """One batch: extract -> (canonical) -> mix -> dedupe -> slices
+        -> spill carry -> exchange.  Returns this rank's received runs
+        (keys [n, route_cap, lanes], counts [n, route_cap], lens [n])."""
+        batch, spec = self.batch, self.spec
+        n, cap, lanes = self.n_shards, self.route_cap, spec.lanes
+        dev = buf.device
+        cols = extract_kmer_cols(buf[: batch.total_words], batch)
+        if self.canonical:  # before the mix, as in the JAX package
+            cols = canonicalize_cols(cols, spec)
+        if self.hashed_store:
+            cols = self.route_map.apply_cols(cols)
+        valid = intervals_to_valid(buf[batch.total_words :], batch)
+        uc = count_unique(cols, valid, spec, uniform_prefix=(
+            self.hashed_store and not self._mix_full_sort))
+        owner = owner_of_hash(uc.keys[:, -1], spec, n)
+        starts = _owner_starts(torch.where(uc.valid, owner, n), n)
+        lens = starts[1:] - starts[:-1]
+        # each destination's rows are one slice of the sorted rows; the
+        # padding keeps every slice (and the spill tail) in bounds
+        pad = cap * (2 if self._carry_enabled else 1)
+        keys_pad = torch.cat([uc.keys, uc.keys.new_zeros(pad, lanes)])
+        counts_pad = torch.cat([uc.counts, uc.counts.new_zeros(pad)])
+        rows = starts[:n, None] + torch.arange(cap, device=dev)
+        send_keys, send_counts = keys_pad[rows], counts_pad[rows]
+        spill = (lens - cap).clamp(min=0)
+        if self._carry_enabled:
+            # append each destination's tail [starts+cap, starts+lens) at
+            # its carry's row cl; an append that would not fit whole
+            # captures nothing and counts as hard spill (finish raises)
+            ck, cc, cl = self._carry
+            room = ck.shape[1] - cap
+            clobber = cl > room
+            off = cl.clamp(max=room).to(torch.int64)
+            captured = torch.where(clobber, 0, spill.clamp(max=cap))
+            ar = torch.arange(cap, device=dev)
+            tail = starts[:n, None] + cap + ar
+            dst = (torch.arange(n, device=dev)[:, None], off[:, None] + ar)
+            ck[dst] = keys_pad[tail]
+            cc[dst] = counts_pad[tail]
+            cl += captured.to(torch.int32)
+            spill = spill - captured
+        self._health[0] += spill.sum()
+        if uc.collided is not None:
+            self._health[1] += uc.collided.to(torch.int64)
+        send_lens = lens.clamp(max=cap).to(torch.int32)
+        return (self._exchange(send_keys), self._exchange(send_counts),
+                self._exchange(send_lens))
+
+    def _step_buf(self, buf: torch.Tensor) -> None:
+        """Route one batch (every rank steps together) and fold the
+        received runs every merge_every steps."""
+        self._pending_recv.append(self._route(buf))
+        self.batches_processed += self.n_shards
+        self._maybe_progress(getattr(self, "_live_stats_fn", None))
+        if len(self._pending_recv) >= self.merge_every:
+            self._flush_merges()
+
+    # --- folding into the shard store ---
+
+    def _flush_merges(self, force: bool = False) -> None:
+        pend = self._pending_recv
+        if not pend or (len(pend) < self.merge_every and not force):
+            return
+        self._pending_recv = []
+        keys = torch.cat([p[0] for p in pend])      # [R*n, cap, lanes]
+        counts = torch.cat([p[1] for p in pend])    # [R*n, cap]
+        lens = torch.cat([p[2] for p in pend])      # [R*n]
+        valid = (torch.arange(self.route_cap, device=self.device)
+                 < lens[:, None])
+        if self.backend == "sort":
+            # the flat store, or the LSM's L0 and its cascade
+            self.state = self.store.merge_stacked(self.state, keys, counts,
+                                                  valid)
+            return
+        # the table: re-dedupe the runs with their counts as weights
+        uc = count_unique(keys.reshape(-1, self.spec.lanes),
+                          valid.reshape(-1), self.spec,
+                          weights=counts.reshape(-1))
+        self.state = table_insert(self.table, self.state, uc)
+
+    def _collapse_lsm(self) -> None:
+        """Absorb every LSM level into the top one (reads see one store);
+        the cascade restarts, as the JAX sharded counter's does."""
+        if self.lsm:
+            self.state = self.store.collapse(self.state)
+            self.store.reset_schedule()
+
+    def _recover_spill(self) -> None:
+        """Exchange the spill carry as a step exchanges its slices,
+        re-dedupe the received rows with their counts as weights (tails of
+        different batches are sorted each, not together) and fold them
+        into the read state; then clear the carry.  Collective."""
+        ck, cc, cl = self._carry
+        rk, rc, rl = map(self._exchange, (ck, cc, cl))
+        valid = torch.arange(ck.shape[1], device=self.device) < rl[:, None]
+        lanes = self.spec.lanes
+        uc = count_unique(rk.reshape(-1, lanes), valid.reshape(-1),
+                          self.spec, weights=rc.reshape(-1))
+        if self.backend == "table":
+            self.state = table_insert(self.table, self.state, uc)
+        elif self.lsm:  # into the top level, as the JAX package folds it
+            self.state[-1] = self.store.levels[-1].merge_stacked(
+                self.state[-1], uc.keys[None], uc.counts[None],
+                uc.valid[None])
+        else:
+            self.state = self.store.merge_stacked(
+                self.state, uc.keys[None], uc.counts[None], uc.valid[None])
+        self._carry = self._init_carry()
+
+    # --- ingestion ---
+
+    def _dispatch_pending(self, force: bool = False) -> None:
+        """Step the packed batches.  One rank steps each batch as it
+        comes; several step them in one round (parallel/distributed.py
+        `run_round`) when forced, at the end of add_reads and at flush."""
+        from tsxcount_tpu_torch.parallel.distributed import run_round
+
+        if self.n_shards > 1 and not force:
+            return
+        if self.n_shards == 1 and not self._pending:
+            return
+        # several ranks: a rank with nothing to step still joins the round
+        t0 = time.perf_counter()
+        pend, self._pending = self._pending, []
+        run_round(self, pend, self._put)
+        self.elapsed += time.perf_counter() - t0
+
+    def add_reads(self, reads: Iterable[str | bytes]) -> None:
+        """Pack and count this rank's reads.  With several ranks this is a
+        collective: every rank calls it (a rank without reads with an
+        empty iterable), and the steps run in one round at its end."""
+        reads = iter(reads)
+        if self._auto_hint:
+            sample = list(itertools.islice(reads, _HINT_SAMPLE))
+            self._adapt_read_len(len(s) for s in sample)
+            reads = itertools.chain(sample, reads)
+        for seq in reads:
+            self._pending.extend(self.packer.feed(seq))
+            if self.n_shards == 1:
+                self._dispatch_pending()
+        self._dispatch_pending(force=True)
+
+    def flush(self) -> None:
+        """Count the last partial batch, fold every pending run and the
+        spill carry into the stores (before a checkpoint; finish adds the
+        capacity checks).  Collective."""
+        self._pending.extend(self.packer.finish())
+        self._dispatch_pending(force=True)
+        self._flush_merges(force=True)
+        if self._carry_enabled:
+            carry_n = self._sum(self._carry[2].sum().reshape(1))[0]
+            if carry_n:
+                self._recover_spill()
+                self._spill_recovered += carry_n
+
+    def finish(self) -> None:
+        """flush, then every rank's capacity, spill and collision flags in
+        one all_reduce: every rank raises the same error."""
+        self.flush()
+        if self.backend == "table":
+            full = self.state.spilled
+        else:
+            levels = self.state if self.lsm else [self.state]
+            full = torch.stack([st.overflowed for st in levels]).any()
+        over, spill, taint = self._sum(
+            torch.cat([full.to(torch.int64).reshape(1), self._health]))
+        self._health.zero_()
+        if over:
+            what = ("unresolved reprobes" if self.backend == "table"
+                    else "capacity overflow")
+            raise TableFull(f"{what} in a table shard; rerun with larger --l")
+        if spill:
+            raise TableFull(
+                f"{spill} routed kmers overflowed both the per-destination "
+                f"capacity {self.route_cap} and the spill carry; increase "
+                f"capacity_factor")
+        if taint:
+            raise PrefixCollision(PrefixCollision.__doc__)
+
+    def count_file(self, path: str | Path,
+                   use_native: bool | None = None) -> None:
+        """Count a FASTQ/FASTA(.gz) file, each rank its share of it
+        (parallel/distributed.py).  A detected dedupe-prefix collision,
+        which every rank sees (the flags are summed), recounts the file
+        with the full sort when the counter held no earlier data."""
+        from tsxcount_tpu_torch.parallel.distributed import (
+            count_file_distributed,
+        )
+
+        fresh = (self.batches_processed == 0
+                 and self._global_stats().reads == 0)
+        try:
+            count_file_distributed(self, path, use_native=use_native)
+        except PrefixCollision:
+            if not fresh:
+                raise
+            print("tsxcount: dedupe-prefix collision detected; recounting "
+                  "with the full-comparator sort (exact)", file=sys.stderr)
+            self._mix_full_sort = True
+            self.reset()
+            count_file_distributed(self, path, use_native=use_native)
+
+    # --- queries and export (collectives) ---
+
+    def _prepare(self) -> None:
+        self._flush_merges(force=True)
+        self._collapse_lsm()
+
+    @property
+    def distinct(self) -> int:
+        self._prepare()
+        return self._sum(self._read_state.n.reshape(1))[0]
+
+    @property
+    def total_kmers(self) -> int:
+        st = self._global_stats()
+        return st.windows + sum(st.hp_bonus)
+
+    def get_counts(self, kmers: list[str]) -> list[int]:
+        """Exact counts (0 if absent): each rank looks the keys up in its
+        shard, one all_reduce(SUM) joins the answers."""
+        if not kmers:
+            return []
+        self._prepare()
+        keys = torch.from_numpy(
+            strings_to_kmers(kmers, self.spec).view(np.int32)).to(self.device)
+        if self.canonical:
+            keys = canonicalize(keys, self.spec)
+        if self.hashed_store:
+            keys = self.route_map.apply(keys)
+        out: list[int] = []
+        for off in range(0, len(kmers), _QUERY_BATCH):
+            q = keys[off : off + _QUERY_BATCH]
+            if self.backend == "sort":
+                counts, _ = self.store.lookup(self.state, q)
+            else:
+                digits, found = self.table.lookup(self.state, q)
+                d = digits.to(torch.int64)
+                counts = torch.where(
+                    found, d[:, 0] + (d[:, 1] << COUNT_DIGIT_BITS)
+                    + (d[:, 2] << 2 * COUNT_DIGIT_BITS), 0)
+            if self.group.joined:
+                dist.all_reduce(counts)
+            out.extend(counts.cpu().tolist())
+        owed = self._hp_owed_query()
+        if owed:
+            out = [c + owed.get(s, 0) for s, c in zip(kmers, out)]
+        return out
+
+    def _shard_export(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """This shard's (stored keys int32 [n, lanes], counts int64 [n])
+        on its device: hashed keys where the store holds images."""
+        if self.backend == "table":
+            return self.table.export(self.state)
+        return self.store.export(self.state)
+
+    def items(self) -> Iterator[tuple[str, int]]:
+        """Stream (kmer string, count), shard after shard (each ascending
+        by stored key, or the table's slot order), on every rank: each
+        shard's rows are gathered to every rank and mapped back through
+        the mix on the device."""
+        self._prepare()
+        keys, counts = self._shard_export()
+        owed = self._hp_owed_emit()
+        for k_sh, c_sh in zip(self._gather_rows(keys),
+                              self._gather_rows(counts)):
+            if self.hashed_store and k_sh.shape[0]:
+                k_sh = self.route_map.inv_apply(k_sh)
+            strings = kmers_to_strings(k_sh.cpu().numpy().view(np.uint32),
+                                       self.spec)
+            for kmer_str, cnt in zip(strings, c_sh.cpu().tolist()):
+                yield kmer_str, cnt + owed.pop(kmer_str, 0)
+        for kmer_str, cnt in sorted(owed.items()):
+            if cnt:  # owed keys the store never saw (see HpBonusMixin)
+                yield kmer_str, cnt
+
+    def to_dict(self) -> dict[str, int]:
+        return dict(self.items())
+
+    def check(self, golden_path: str | Path, abort: bool = False,
+              max_report: int = 20) -> CheckResult:
+        """Verify counts against a `kmer\\tcount` golden file (every rank
+        reads it and sees the same result)."""
+        golden = read_golden(golden_path)
+        res = CheckResult()
+        kmers = list(golden.keys())
+        for kmer_str, got in zip(kmers, self.get_counts(kmers)):
+            want = golden[kmer_str]
+            res.n_checked += 1
+            if got == want:
+                res.n_matched += 1
+                continue
+            target = res.missing if got == 0 else res.mismatches
+            if len(target) < max_report:
+                target.append((kmer_str, want, got))
+            if abort:
+                raise CheckAbort(f"count mismatch for {kmer_str}: expected "
+                                 f"{want}, got {got}")
+        res.extra_distinct = max(0, self.distinct - len(golden))
+        return res
+
+    def stats(self) -> dict:
+        st = dataclasses.asdict(self._global_stats())
+        self._prepare()
+        ns = torch.cat(self._gather_rows(
+            self._read_state.n.reshape(1))).cpu().numpy()
+        st.update(
+            backend=self.backend,
+            k=self.spec.k,
+            l=self.l,
+            lanes=self.spec.lanes,
+            lsm=self.lsm,
+            device=str(self.device),
+            n_shards=self.n_shards,
+            distinct_kmers=int(ns.sum()),
+            total_kmers=self.total_kmers,
+            batches=self.batches_processed,
+            device_seconds=round(self.elapsed, 4),
+            shard_distinct=[int(x) for x in ns],
+            shard_imbalance=round(float(ns.max()) / max(1.0, float(ns.mean())),
+                                  4),
+            spill_recovered=self._spill_recovered,
+        )
+        return st
+
+    def print_stats(self) -> None:
+        for key, val in self.stats().items():
+            print(f"{key}: {val}")
+
+    # --- checkpoints (core/checkpoint.py) ---
+
+    @property
+    def _reference_fields(self) -> tuple[str, ...]:
+        return TABLE_FIELDS if self.backend == "table" else STORE_FIELDS
+
+    def _shard_reference(self) -> dict[str, np.ndarray]:
+        """This shard's read state as the JAX package's state fields
+        (numpy).  Folds every pending batch, run and carry first.
+        Collective."""
+        self.flush()
+        self._collapse_lsm()
+        if self.backend == "table":
+            return self.table.state_to_reference(self.state)
+        return self.store.state_to_reference(self.state)
+
+    def _load_shard_reference(self, ref) -> None:
+        """Replace this shard's counts with a JAX package state of one
+        shard (numpy fields; the LSM's top level)."""
+        self._pending_recv = []
+        owner = self.table if self.backend == "table" else self.store
+        self.state = owner.state_from_reference(ref)

@@ -19,7 +19,15 @@ factors do not apply).  Bytes per row are read off the code, not measured:
   * the table (core/table.py): its flat slot array, a split round's sort
     and columns at full width, and the digit renormalisation's int64
     temporaries over every slot;
-  * ingest: the device copies of the packed batches in flight.
+  * ingest: the device copies of the packed batches in flight;
+  * the sharded counter (n_shards >= 1, parallel/sharded.py): ONE
+    shard's device, as the JAX model counts it: its share of the table
+    (2^l / n_shards rows; the table 2^(l - log2 n) slots), the routing
+    step's padded rows, send and receive blocks and gather indices, the
+    spill carry, the received runs that wait for a flush (merge_every x
+    n_shards x route_cap rows, which replace the pending histograms),
+    and a flush of that many rows into the store (the table: their
+    weighted re-dedupe and split rounds at that width).
 
 Every term is summed, as if the dedupe, the merge and the renormalisation
 peaked at once: an upper bound for `torch.cuda.max_memory_allocated()`,
@@ -30,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from tsxcount_tpu_torch.config import BatchSpec, KmerSpec
+from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, route_capacity
 from tsxcount_tpu_torch.core.lsm import LSMStore
 
 MB = 1 << 20
@@ -59,8 +67,13 @@ def estimate_hbm(
     hash_first: bool | str = False,
     canonical: bool = False,
     prefetch_depth: int = 3,
+    n_shards: int = 0,
+    capacity_factor: float = 2.0,
 ) -> HbmEstimate:
-    """Peak device bytes of one counting run of the port, in MiB."""
+    """Peak device bytes of one counting run of the port, in MiB: of the
+    KmerCounter (n_shards 0), or of one shard's device of the sharded
+    counter (n_shards >= 1; hash_first then says whether its store holds
+    the mix's images)."""
     spec = KmerSpec(k)
     lanes = spec.lanes
     n_ops = lanes if spec.top_lane_bits < 32 else lanes + 1
@@ -74,18 +87,41 @@ def estimate_hbm(
     if canonical:
         dedupe += p * 32 * lanes  # forward, reverse and select, int64
     pending_row = 4 * lanes + 5  # a histogram row: keys, count, valid
+    flush = max(1, merge_every) * p
+    routing = 0
+    align = None  # the single-GPU LSM's L0: growth flushes
+    if n_shards:
+        route_cap, align = route_capacity(p, n_shards, capacity_factor)
+        run_row = 4 * lanes + 4  # a routed row: keys, count
+        flush = max(1, merge_every if backend == "sort" else 1) * (
+            n_shards * route_cap)
+        # padded rows, the send and receive blocks with the gather's
+        # int64 indices, the spill carry, and the runs waiting to fold
+        routing = ((p + 2 * route_cap) * run_row
+                   + n_shards * route_cap * (2 * run_row + 8)
+                   + (2 * n_shards * route_cap * run_row
+                      if route_cap < p else 0)
+                   + flush * run_row)
+        pending_row = run_row + 1  # and their valid mask at the fold
+        if backend == "table":
+            cap = 1 << max(1, l - max(0, n_shards.bit_length() - 1))
+        else:
+            cap = max(1, cap // n_shards)
     if backend == "table":
         state = 4 * (lanes + 4) * cap
-        # the batch histogram, a full-width split round, and the digit
+        # the batch histogram (sharded: the weighted re-dedupe of a
+        # flush), a full-width split round, and the digit
         # renormalisation's temporaries over every slot
-        merge = p * (pending_row + 120 + 24 * lanes) + 40 * cap
+        width = flush if n_shards else p
+        merge = width * (pending_row + 120 + 24 * lanes) + 40 * cap
+        if n_shards:
+            merge += width * (96 + 16 * n_ops + 8 * lanes)
     else:
         row = 4 * n_ops + 8  # a store row: operands + int64 count
         fold = 12 * n_ops + 25  # kernel 3's output, tail copies, mask
-        flush = max(1, merge_every) * p
         batch_side = flush * (2 * pending_row + 4 * (n_ops + 1) + 8 + row)
         if lsm:
-            caps = LSMStore.level_capacities(cap, flush, lsm_growth)
+            caps = LSMStore.level_capacities(cap, flush, lsm_growth, align)
             state = row * sum(caps)
             # the largest of the L0 merge and the absorbs into each level
             merge = max([caps[0] * fold + batch_side]
@@ -98,6 +134,7 @@ def estimate_hbm(
     # interval budget at its largest, one read a word)
     batch = BatchSpec(spec, batch_words, read_len_hint=1)
     ingest = 4 * batch.buf_words * (prefetch_depth + 2)
+    ingest += routing
     total = state + dedupe + merge + ingest
     return HbmEstimate(state_mb=state / MB, dedupe_peak_mb=dedupe / MB,
                        merge_peak_mb=merge / MB, ingest_mb=ingest / MB,
@@ -105,14 +142,19 @@ def estimate_hbm(
 
 
 def estimate_for(counter) -> HbmEstimate:
-    """estimate_hbm of a built KmerCounter: its own geometry and options
-    (the LSM as its rule chose it), not the flags that asked for them."""
+    """estimate_hbm of a built KmerCounter or ShardedKmerCounter (one
+    shard's device): its own geometry and options (the LSM as its rule
+    chose it), not the flags that asked for them."""
+    sharded = hasattr(counter, "n_shards")
     return estimate_hbm(
         k=counter.spec.k, l=counter.l,
         batch_words=counter.batch.capacity_words, backend=counter.backend,
         merge_every=counter.merge_every, lsm=counter.lsm,
-        lsm_growth=counter.lsm_growth, hash_first=counter.hash_first,
-        canonical=counter.canonical, prefetch_depth=counter.prefetch_depth)
+        lsm_growth=counter.lsm_growth,
+        hash_first=counter.hashed_store if sharded else counter.hash_first,
+        canonical=counter.canonical, prefetch_depth=counter.prefetch_depth,
+        n_shards=counter.n_shards if sharded else 0,
+        capacity_factor=counter.capacity_factor if sharded else 2.0)
 
 
 def device_hbm_capacity_mb() -> float:
