@@ -88,6 +88,23 @@ non-zero and no result line is printed):
      gloo stages the exchange through the host), sort and table at k=14,
      each rank its byte range of the file, exports against the numpy
      count;
+  9. the last options (the bench FASTQ, each export against its numpy
+     count): 9a `hash_first="gf2"` (sort, k=14 l=26 and k=63 l=25,
+     2^20-word batches), 9b `mix_prefix=True` at k = 31, 127 and 224
+     (l=25; k=224 runs kernels 1-3 at 17 key words), each with cold and
+     warm walls and the card's busy time beside the default path at the
+     same k, the GF(2) product's time a batch (event-timed, and aten::mm
+     from a trace) and the mix columns' time; kernels 2 and 3 at 9b's
+     k=127 and k=224 widths and rows (kernel 3 on each count's own
+     store), exact and timed beside their bounds; 9c
+     `ShardedKmerCounter(n_shards=1, routing_hash="gf2")` on the table
+     (k=14 l=26) and `identity_hash=True` on the sort backend; 9d two
+     ranks on cuda:0 over gloo with the GF(2) routing, sort and table;
+     9e save -> load -> continue for 9a (k=14), 9b (k=127) and 9c, each
+     equal to the whole count, and the command line with `--shards 0
+     --mix-prefix`, `--shards 0 --hash-first gf2` and `--routing-hash gf2
+     --mode table` (exit 0, the k=14 totals); the memory estimate against
+     the peak of three of its counts;
 then the kernels' JSON line (the contract's keys; extra times, floors and
 bounds only in the kernel_time lines), the nvidia-smi line, and as the
 last line
@@ -97,6 +114,7 @@ tsxcount_tpu_torch/build/ (gitignored).  No JAX is imported.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import io
@@ -141,6 +159,8 @@ from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
     LaneMixBijection,
     lane_mix,
     lane_mix_plain,
+    mix_cols,
+    strip_mix,
 )
 from tsxcount_tpu_torch import cli  # noqa: E402
 from tsxcount_tpu_torch.core.checkpoint import (  # noqa: E402
@@ -773,16 +793,24 @@ def host_count(path: Path, k: int) -> tuple[np.ndarray, np.ndarray]:
 
 def export(counter: KmerCounter) -> tuple[np.ndarray, np.ndarray]:
     """(int64 keys ascending, counts) of the counter's full export (k <=
-    32); reading `distinct` first collapses an LSM store."""
+    32)."""
+    keys, counts = export_lanes(counter)
+    return flat_export(keys, counts)
+
+
+def export_lanes(counter: KmerCounter) -> tuple[np.ndarray, np.ndarray]:
+    """(uint32 keys [n, lanes], counts) of the counter's full export, in
+    the store's (or the table's slot) order; reading `distinct` first
+    collapses an LSM store."""
     counter.distinct
-    if counter.backend == "sort":
-        keys, counts, _ = counter.store.to_host(counter.state)
-    else:  # slot order: sort by key
+    if counter.backend == "sort":  # store images mapped back on the card
+        keys, counts, _ = counter.store.to_host(counter.state,
+                                                counter.key_map)
+        if counter.mix_prefix:
+            keys = strip_mix(keys)
+    else:
         keys, counts, _ = counter.table.to_host(counter.state)
-    keys = keys.astype(np.int64)
-    flat = keys[:, 0] | (keys[:, 1] << 32 if keys.shape[1] > 1 else 0)
-    order = np.argsort(flat, kind="stable")
-    return flat[order], np.asarray(counts, np.int64)[order]
+    return keys, counts
 
 
 def check_queries(counter: KmerCounter, want_keys, want_counts) -> None:
@@ -1202,8 +1230,7 @@ def host_count_lanes(path: Path, k: int) -> tuple:
 def check_wide_export(counter: KmerCounter, want: tuple, tag: str) -> None:
     """The counter's full export (keys mapped back on the card) equals the
     numpy count, key by key and count by count."""
-    keys, counts, _ = counter.store.to_host(counter.state, counter.key_map)
-    check_wide_arrays(keys, counts, want, tag)
+    check_wide_arrays(*export_lanes(counter), want, tag)
 
 
 def check_wide_arrays(keys: np.ndarray, counts: np.ndarray, want: tuple,
@@ -1217,9 +1244,9 @@ def check_wide_arrays(keys: np.ndarray, counts: np.ndarray, want: tuple,
         raise AssertionError(f"{tag}: export differs from the numpy count")
 
 
-def device_busy_ms(fn) -> float:
-    """The card's busy time over fn() (ms): the union of the CUDA kernel and
-    copy intervals of a torch.profiler trace, whatever the host did."""
+def traced(fn):
+    """fn() under torch.profiler (host and card): the finished trace,
+    which must hold device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1227,10 +1254,15 @@ def device_busy_ms(fn) -> float:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = device_busy_us(prof) / 1e3
-    if busy <= 0:
+    if device_busy_us(prof) <= 0:
         raise AssertionError("the trace holds no device activity")
-    return busy
+    return prof
+
+
+def device_busy_ms(fn) -> float:
+    """The card's busy time over fn() (ms): the union of the CUDA kernel and
+    copy intervals of a torch.profiler trace, whatever the host did."""
+    return device_busy_us(traced(fn)) / 1e3
 
 
 def wide_end_to_end(path: Path) -> tuple[dict, tuple]:
@@ -1804,10 +1836,12 @@ RANKS_8D = 2
 RANK_TIMEOUT_S = 300
 
 
-def rank_8d(rank: int, init: str, path: str, out: str) -> None:
-    """One of 8d's ranks (a process of its own): sort and table at k=14,
-    l=26, 2^20-word batches, each rank its byte range of the file, on
-    cuda:0 over gloo; rank 0 writes the gathered exports."""
+def rank_8d(rank: int, init: str, path: str, out: str,
+            routing: str = "mix") -> None:
+    """One of 8d's (9d's) ranks (a process of its own): sort and table at
+    k=14, l=26, 2^20-word batches, routed through `routing`, each rank
+    its byte range of the file, on cuda:0 over gloo; rank 0 writes the
+    gathered exports."""
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=init, rank=rank,
@@ -1817,7 +1851,7 @@ def rank_8d(rank: int, init: str, path: str, out: str) -> None:
         _build.reset_launch_counts()
         c = ShardedKmerCounter(k=K, n_shards=RANKS_8D, l=26, backend=backend,
                                batch_words=1 << 20, device="cuda:0",
-                               dist_backend="gloo")
+                               dist_backend="gloo", routing_hash=routing)
         res[f"{backend}/seconds"] = timed_count(c, Path(path))
         res[f"{backend}/launches"] = json.dumps(_build.launch_counts())
         res[f"{backend}/keys"], res[f"{backend}/counts"] = flat_export(
@@ -1830,20 +1864,21 @@ def rank_8d(rank: int, init: str, path: str, out: str) -> None:
     dist.destroy_process_group()
 
 
-def two_ranks_on_one_card(path: Path, want: tuple) -> None:
-    """8d: RANKS_8D processes on the one card, the CUDA tensors of the
-    exchange staged through the host by gloo; exports against the numpy
-    count."""
-    tmp = _build.BUILD_DIR / "ranks8d"
+def two_ranks_on_one_card(path: Path, want: tuple, routing: str = "mix",
+                          tag: str = "8d") -> None:
+    """8d (9d: routing "gf2"): RANKS_8D processes on the one card, the
+    CUDA tensors of the exchange staged through the host by gloo; exports
+    against the numpy count."""
+    tmp = _build.BUILD_DIR / f"ranks{tag}"
     shutil.rmtree(tmp, ignore_errors=True)
     tmp.mkdir(parents=True)
     out = tmp / "rank0.npz"
     code = ("import sys, chip_smoke; chip_smoke.rank_8d(int(sys.argv[1]), "
-            "sys.argv[2], sys.argv[3], sys.argv[4])")
+            "sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5])")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-c", code, str(r), f"file://{tmp}/pg", str(path),
-         str(out)], cwd=REPO) for r in range(RANKS_8D)]
+         str(out), routing], cwd=REPO) for r in range(RANKS_8D)]
     try:
         codes = [p.wait(timeout=RANK_TIMEOUT_S) for p in procs]
     finally:
@@ -1852,19 +1887,357 @@ def two_ranks_on_one_card(path: Path, want: tuple) -> None:
                 p.kill()
                 p.wait()
     if any(codes):
-        raise AssertionError(f"8d: rank exit codes {codes}")
+        raise AssertionError(f"{tag}: rank exit codes {codes}")
     res = dict(np.load(out))
     for backend in ("sort", "table"):
         got = (res[f"{backend}/keys"], res[f"{backend}/counts"])
         if not all(np.array_equal(x, y) for x, y in zip(got, want)):
-            raise AssertionError(f"8d {backend}: export differs from the "
-                                 f"numpy count")
-        phase("e2e_sharded", run=f"8d {backend}, {RANKS_8D} ranks gloo "
-              f"cuda:0", cold_s=round(float(res[f"{backend}/seconds"]), 4),
+            raise AssertionError(f"{tag} {backend}: export differs from "
+                                 f"the numpy count")
+        phase("e2e_sharded", run=f"{tag} {backend}, {RANKS_8D} ranks gloo "
+              f"cuda:0, routing {routing}",
+              cold_s=round(float(res[f"{backend}/seconds"]), 4),
               shard_distinct=res[f"{backend}/shard_distinct"].tolist(),
               rank0_launches=str(res[f"{backend}/launches"]))
-    phase("e2e_sharded", run="8d", seconds=round(time.perf_counter() - t0,
-                                                 3))
+    phase("e2e_sharded", run=tag, seconds=round(time.perf_counter() - t0,
+                                                3))
+
+
+# --- phase 9 ----------------------------------------------------------------
+
+GF2_RUNS = ((K, 26), (63, WIDE_L))   # 9a: (k, l) of hash_first="gf2"
+MIX_PREFIX_KS = (31, 127, 224)       # 9b: mix_prefix=True at l=WIDE_L
+
+
+def check_last(counter, want: tuple, tag: str) -> None:
+    """Totals and the full export against a numpy count: host_count's
+    (keys, counts) at k <= 32, else host_count_lanes' triple."""
+    total, distinct = counter.total_kmers, counter.distinct
+    if (total, distinct) != (int(want[1].sum()), len(want[0])):
+        raise AssertionError(f"{tag}: totals {total}/{distinct}")
+    if len(want) == 2:
+        check_export(counter, want, tag)
+    else:
+        check_wide_export(counter, want, tag)
+
+
+def op_device_ms(prof, name: str) -> float | None:
+    """Device time (ms) of the kernels under op `name` in a finished
+    torch.profiler trace, or None where the trace shows none."""
+    for e in prof.key_averages():
+        if e.key == name:
+            t = getattr(e, "device_time_total", 0.0)
+            return t / 1e3 if t > 0 else None
+    return None
+
+
+def beside_default(path: Path, want: tuple, tag: str, option: dict,
+                   need, peak: bool, **geo) -> tuple:
+    """A new option's cold count (its launches read from counts zeroed
+    just before it; with `peak`, the memory estimate against the
+    allocator's peak), export, warm wall and busy time; then the default
+    path at the same geometry: cold, warm wall and busy time.  Returns
+    (the option's launches, its counter, its busy count's trace)."""
+    def make():
+        return made_and_counted(path, **geo, **option)
+
+    _build.reset_launch_counts()
+    c, cold = peak_checked(tag, make, counter_estimate) if peak else make()
+    run = _build.launch_counts()
+    require_kernels(run, need, tag)
+    check_last(c, want, tag)
+    c.reset()
+    warm = timed_count(c, path)
+    c.reset()
+    prof = traced(lambda: c.count_file(path, use_native=True))
+    d, d_cold = made_and_counted(path, **geo)
+    d.reset()
+    d_warm = timed_count(d, path)
+    d.reset()
+    d_busy = device_busy_ms(lambda: d.count_file(path, use_native=True))
+    phase("e2e_last", run=tag, operands=c.store.n_ops,
+          batches=c.batches_processed, cold_s=round(cold, 4),
+          warm_s=round(warm, 4), kmers_per_s_warm=round(c.total_kmers / warm),
+          warm_device_busy_ms=round(device_busy_us(prof) / 1e3, 3),
+          default_hash_first=d.hash_first, default_cold_s=round(d_cold, 4),
+          default_warm_s=round(d_warm, 4),
+          default_warm_device_busy_ms=round(d_busy, 3), launches=run)
+    del d
+    return run, c, prof
+
+
+def check_mix_prefix_kernels(results: dict, c: KmerCounter) -> None:
+    """Kernels 2 and 3 at a mix_prefix count's own widths and rows: kernel
+    3 folds the count's 2^25-row store into a copy of itself (every key
+    meets its twin), kernel 2 merges two sorted 2^24-row runs (one
+    2^20-word batch's histogram each) of as many key words with an int32
+    count; each exact against its plain version, timed beside its bound."""
+    n_keys, k = c.store.n_ops, c.spec.k
+    tag = f"mix_prefix_k{k}_n_keys{n_keys}"
+    st = c.state
+    a = tuple(st.keys.unbind(0)) + (st.counts,)
+    got, g_runs, g_valid = merge_dedupe_sorted(a, a, n_keys, c.store.inv_min)
+    want, w_runs, w_valid = merge_dedupe_sorted_plain(a, a, n_keys,
+                                                      c.store.inv_min)
+    runs = int(w_runs)
+    if (int(g_runs), int(g_valid)) != (runs, int(w_valid)):
+        raise AssertionError(f"{tag}: runs/valid {int(g_runs)}/"
+                             f"{int(g_valid)} != {runs}/{int(w_valid)}")
+    err3 = max_err(got, want, runs)
+    del got, want
+    m = a[0].numel()
+    r3 = results["merge_dedupe_sorted"]
+    r3["max_abs_err"] = max(r3["max_abs_err"], err3)
+    r3["extra"][f"ms_{tag}"] = cuda_ms(
+        lambda: merge_dedupe_sorted(a, a, n_keys, c.store.inv_min))
+    r3["extra"][f"plain_ms_{tag}"] = cuda_ms(
+        lambda: merge_dedupe_sorted_plain(a, a, n_keys, c.store.inv_min))
+    r3["extra"][f"bound_ms_{tag}"] = bytes_ms((2 * m + runs)
+                                              * (4 * n_keys + 8))
+    del a
+    g = torch.Generator(device=DEV)
+    g.manual_seed(k)
+    size = BatchSpec(c.spec, 1 << 20).positions
+    # the flag operand is 0 on every valid row: the first word below 1
+    a = tuple(wide_sorted(size, n_keys, g, hi=1)) + (
+        torch.randint(1, 1 << 20, (size,), dtype=torch.int32, device=DEV,
+                      generator=g),)
+    b = tuple(wide_sorted(size, n_keys, g, hi=1)) + (a[-1].flip(0),)
+    err2 = max_err(merge_sorted(a, b, n_keys=n_keys),
+                   merge_sorted_plain(a, b, n_keys=n_keys))
+    r2 = results["merge_sorted"]
+    r2["max_abs_err"] = max(r2["max_abs_err"], err2)
+    r2["extra"][f"ms_{tag}"] = cuda_ms(
+        lambda: merge_sorted(a, b, n_keys=n_keys))
+    r2["extra"][f"plain_ms_{tag}"] = cuda_ms(
+        lambda: merge_sorted_plain(a, b, n_keys=n_keys))
+    r2["extra"][f"bound_ms_{tag}"] = bytes_ms(2 * (2 * size)
+                                              * (4 * n_keys + 4))
+    phase("kernel", name="merge_dedupe_sorted", case=tag, rows=2 * m,
+          runs=runs, max_abs_err=err3)
+    phase("kernel", name="merge_sorted", case=tag, rows=2 * size,
+          max_abs_err=err2)
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def gf2_and_mix_times(gf2_fns: dict) -> None:
+    """The GF(2) product of one 2^20-word batch's keys (9a's k, its
+    unpack, matmul and pack) and the mix columns of one batch at 9b's k,
+    event-timed on seeded keys; the mix columns equal the CPU's on a
+    slice and stand beside their bytes bound (each lane read, two columns
+    written)."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(9)
+    for k, hash_fn in gf2_fns.items():
+        spec = KmerSpec(k)
+        p = BatchSpec(spec, 1 << 20).positions
+        keys = torch.randint(-2**31, 2**31, (p, spec.lanes),
+                             dtype=torch.int32, device=DEV, generator=g)
+        keys[:, -1] &= spec.top_lane_mask
+        phase("gf2_product", k=k, rows=p, bits=spec.bits,
+              ms=round(cuda_ms(lambda: hash_fn.apply(keys)), 4))
+        del keys
+    for k in MIX_PREFIX_KS:
+        spec = KmerSpec(k)
+        p = BatchSpec(spec, 1 << 20).positions
+        cols = [torch.randint(-2**31, 2**31, (p,), dtype=torch.int32,
+                              device=DEV, generator=g)
+                for _ in range(spec.lanes)]
+        head = 1 << 16  # the CPU's int64 arithmetic on a slice
+        got = mix_cols(cols)
+        want = mix_cols([col[:head].cpu() for col in cols])
+        if not all(torch.equal(x[:head].cpu(), y)
+                   for x, y in zip(got, want)):
+            raise AssertionError(f"mix_cols k={k}: card != CPU")
+        ms = cuda_ms(lambda: mix_cols(cols))
+        bound = bytes_ms(p * (4 * spec.lanes + 8))
+        phase("mix_cols", k=k, lanes=spec.lanes, rows=p, ms=round(ms, 4),
+              bound_ms=round(bound, 4), card_equals_cpu_rows=head)
+        del cols, got, want
+
+
+def last_options(path: Path, want14: tuple, wants: dict,
+                 results: dict) -> dict:
+    """Phase 9.  Returns the launches of its new-option counts (each read
+    from counts zeroed just before it; the default-path comparisons
+    excluded)."""
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    clock = [time.perf_counter()]
+
+    def add(run):
+        for name in launches:
+            launches[name] += run[name]
+
+    def lap(part: str) -> None:  # each part's seconds
+        t = time.perf_counter()
+        phase("last_options", part=part, seconds=round(t - clock[0], 3))
+        clock[0] = t
+
+    # 9a: hash_first="gf2", beside the default path at the same k
+    gf2_fns = {}
+    for k, l in GF2_RUNS:
+        tag = f"9a hash_first=gf2 k={k} l={l}"
+        run, c, prof = beside_default(
+            path, want14 if k == K else wants[k], tag,
+            dict(hash_first="gf2"), SORT_KERNELS, peak=k != K, k=k, l=l,
+            batch_words=1 << 20)
+        if c.hash_first != "gf2" or run["lane_mix"]:
+            raise AssertionError(f"{tag}: hash_first {c.hash_first}, "
+                                 f"launches {run}")
+        add(run)
+        mm = op_device_ms(prof, "aten::mm")
+        phase("gf2_product", run=tag, batches=c.batches_processed,
+              aten_mm_ms_per_batch=(None if mm is None else
+                                    round(mm / c.batches_processed, 4)))
+        if k == K:
+            check_queries(c, *want14)
+        gf2_fns[k] = c.hash_fn
+        del c, prof
+    lap("9a")
+    # 9c: the sharded counter at one shard, GF(2) routing
+    for tag, kw, need in (
+            ("9c sharded routing_hash=gf2 table k=14 l=26",
+             dict(backend="table", routing_hash="gf2"), TABLE_KERNELS),
+            ("9c sharded identity_hash sort k=14 l=26",
+             dict(identity_hash=True), SORT_KERNELS)):
+        _build.reset_launch_counts()
+        c, cold = peak_checked(tag, lambda: made_sharded(
+            path, k=K, l=26, batch_words=1 << 20, **kw), counter_estimate)
+        run = _build.launch_counts()
+        require_kernels(run, need, tag)
+        if c.routing_hash != "gf2" or run["lane_mix"]:
+            raise AssertionError(f"{tag}: routing {c.routing_hash}, "
+                                 f"launches {run}")
+        add(run)
+        check_sharded(c, want14, tag)
+        check_queries(c, *want14)
+        c.reset()
+        busy = device_busy_ms(lambda: c.count_file(path, use_native=True))
+        phase("e2e_last", run=tag, hashed_store=c.hashed_store,
+              cold_s=round(cold, 4), warm_device_busy_ms=round(busy, 3),
+              launches=run)
+        del c
+    lap("9c")
+    # 9d: two ranks on the card, rows routed by their GF(2) owners; the
+    # host counts k=224 for 9b meanwhile (beside 9d's cold walls)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host224 = pool.submit(timed_host_count, path, 224)
+        two_ranks_on_one_card(path, want14, routing="gf2", tag="9d")
+    lap("9d")
+    # 9b: mix_prefix at k = 31, 127 and 224 (17 key operands)
+    wants[224] = host224.result()
+    for k in MIX_PREFIX_KS:
+        tag = f"9b mix_prefix k={k} l={WIDE_L}"
+        run, c, prof = beside_default(
+            path, wants[k], tag, dict(mix_prefix=True), SORT_KERNELS,
+            peak=k == 224, k=k, l=WIDE_L, batch_words=1 << 20)
+        ops = KmerSpec(k).lanes + 3  # raw lanes, mix_lo, mix_hi, the flag
+        if (not c.mix_prefix or c.hash_first or c.store.n_ops != ops
+                or run["lane_mix"]):
+            raise AssertionError(f"{tag}: operands {c.store.n_ops}, "
+                                 f"launches {run}")
+        add(run)
+        if k != 31:
+            check_mix_prefix_kernels(results, c)
+        del c, prof
+    lap("9b")
+    gf2_and_mix_times(gf2_fns)
+    del gf2_fns
+    lap("gf2 product and mix columns")
+    # 9e: save -> load -> continue, and the command line
+    add(last_split_runs(path, want14, wants[127]))
+    add(last_cli_runs(path))
+    lap("9e")
+    return launches
+
+
+def timed_host_count(path: Path, k: int) -> tuple:
+    """host_count_lanes, with a line giving its seconds."""
+    t0 = time.perf_counter()
+    want = host_count_lanes(path, k)
+    phase("e2e_setup", k=k, host_count_s=round(time.perf_counter() - t0, 3))
+    return want
+
+
+def last_split_runs(path: Path, want14: tuple, want127: tuple) -> dict:
+    """9e: the first half of the reads counted, saved, loaded on the card
+    and the second half counted, for 9a (k=14), 9b (k=127) and 9c: each
+    export equal to the whole count, the option restored from the file.
+    The sort runs take 2^19-word batches, two a half: a merge tree on
+    each side of the file.  Returns the launches of the three runs."""
+    halves = split_fastq(path)
+    ckpt = _build.BUILD_DIR / "last.npz"
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    runs = (
+        ("9e 9a hash_first=gf2 k=14", want14, "hash_first", "gf2",
+         lambda: KmerCounter(k=K, l=26, batch_words=1 << 19,
+                             hash_first="gf2", device="cuda")),
+        ("9e 9b mix_prefix k=127", want127, "mix_prefix", True,
+         lambda: KmerCounter(k=127, l=WIDE_L, batch_words=1 << 19,
+                             mix_prefix=True, device="cuda")),
+        ("9e 9c sharded gf2 table k=14", want14, "routing_hash", "gf2",
+         lambda: ShardedKmerCounter(k=K, n_shards=1, l=26, backend="table",
+                                    batch_words=1 << 20, routing_hash="gf2",
+                                    device="cuda")))
+    for tag, want, attr, value, make in runs:
+        c = make()
+        c_words = c.batch.capacity_words
+        _build.reset_launch_counts()
+        c.count_file(halves[0], use_native=True)
+        save_counter(c, ckpt)
+        del c
+        c = load_counter(ckpt, batch_words=c_words, device="cuda")
+        c.count_file(halves[1], use_native=True)
+        run = _build.launch_counts()
+        require_kernels(run, TABLE_KERNELS if c.backend == "table"
+                        else SORT_KERNELS, tag)
+        for name in run:
+            launches[name] += run[name]
+        if getattr(c, attr) != value:
+            raise AssertionError(f"{tag}: loaded {attr}={getattr(c, attr)}")
+        if hasattr(c, "n_shards"):
+            check_sharded(c, want, tag)
+        else:
+            check_last(c, want, tag)
+        phase("e2e_split_run", run=tag, total_kmers=c.total_kmers,
+              distinct=c.distinct, file_mb=round(ckpt.stat().st_size
+                                                 / 2**20, 1))
+        del c
+        ckpt.unlink()
+    for part in halves:
+        part.unlink()
+    return launches
+
+
+def last_cli_runs(path: Path) -> dict:
+    """9e: the command line in process with --shards 0 --mix-prefix,
+    --shards 0 --hash-first gf2 and --routing-hash gf2 --mode table, each
+    exit 0 with the k=14 totals.  Returns their launches."""
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    for argv in (["--shards", "0", "--mix-prefix"],
+                 ["--shards", "0", "--hash-first", "gf2"],
+                 ["--routing-hash", "gf2", "--mode", "table"]):
+        out = io.StringIO()
+        _build.reset_launch_counts()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["count", "--input", str(path), "--stats-json",
+                           *argv])
+        run = _build.launch_counts()
+        stats = json.loads(out.getvalue().strip().splitlines()[-1])
+        tag = " ".join(argv)
+        phase("cli", run=tag, rc=rc, total_kmers=stats["total_kmers"],
+              distinct=stats["distinct_kmers"],
+              wall_s=stats["wall_seconds"], launches=run)
+        if rc != 0 or (stats["total_kmers"], stats["distinct_kmers"]) != (
+                TOTAL_KMERS, DISTINCT_KMERS):
+            raise AssertionError(f"cli {tag}: rc {rc}, totals "
+                                 f"{stats['total_kmers']}/"
+                                 f"{stats['distinct_kmers']}")
+        for name in run:
+            launches[name] += run[name]
+    return launches
 
 
 def check_errors(results: dict) -> None:
@@ -1902,6 +2275,10 @@ def main() -> int:
     by_path["sharded"] = sharded_counts(path, (want_keys, want_counts),
                                         wants[127])
     phase("sharded", seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    by_path["last_options"] = last_options(path, (want_keys, want_counts),
+                                           wants, results)
+    phase("last_options", seconds=round(time.perf_counter() - t0, 3))
     check_errors(results)
     for kname, r in results.items():
         times = {k: v for k, v in r.items() if k not in ("max_abs_err",

@@ -1,7 +1,8 @@
 """Checkpoints of the port (core/checkpoint.py): round trips on both
 backends, flat and LSM, resume after load, files that cross between the
-port and the JAX package both ways, a count split in two halves with a
-save and load between them, and the loud refusals.  Exact dumps."""
+port and the JAX package both ways (the files of the GF(2) store image,
+the mix-prefix extended keys and older files too), a count split in two
+halves with a save and load between them.  Exact dumps."""
 
 import json
 
@@ -168,20 +169,26 @@ def _edited(tmp_path, src, **meta_changes):
     return out
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(n_shards=1), None),
-    (dict(n_shards=4), None),
-    (dict(mix_prefix=True), "Do not port"),
-    (dict(hash_first="gf2"), "Do not port"),
-    (dict(hash_first=True), "Do not port"),
-], ids=str)
-def test_refusals_are_loud(tmp_path, change, match, capsys):
-    """Files of stores the port does not build are refused.  Sharded
-    files, once refused, load: a JAX ShardedKmerCounter's file at
-    n_shards 1 and 4 resumes in the port's command line (at 4, as four
-    CPU ranks) and counts the input again, every count doubled."""
+# the case ids of the time these files were refused ("Do not port")
+@pytest.mark.parametrize("change", [
+    dict(n_shards=1), dict(n_shards=4), dict(mix_prefix=True),
+    dict(hash_first="gf2"), dict(hash_first=True),
+], ids=["{'n_shards': 1}-None", "{'n_shards': 4}-None",
+        "{'mix_prefix': True}-Do not port",
+        "{'hash_first': 'gf2'}-Do not port",
+        "{'hash_first': True}-Do not port"])
+def test_refusals_are_loud(tmp_path, change, capsys):
+    """Files the port once refused now load, both ways.  Sharded: a JAX
+    ShardedKmerCounter's file at n_shards 1 and 4 resumes in the port's
+    command line (at 4, as four CPU ranks) and counts the input again,
+    every count doubled.  mix_prefix and hash_first="gf2": a JAX file
+    resumes in the port and the port's file in the JAX package, each
+    ending at the whole count.  Older files: hash_first True (the GF(2)
+    image before "mix" existed) and a sharded GF(2) file without
+    `routing_hash` load as the GF(2) image and resume exactly."""
     reads = rand_reads(np.random.default_rng(6), 10, 10, 40)
-    if match is None:
+    more = rand_reads(np.random.default_rng(7), 10, 10, 40)
+    if "n_shards" in change:
         from tsxcount_tpu.parallel.sharded import (
             ShardedKmerCounter as JSharded,
         )
@@ -201,11 +208,52 @@ def test_refusals_are_loud(tmp_path, change, match, capsys):
         assert {km: int(c) for km, c in got.items()} == {
             km: 2 * c for km, c in naive_kmers(reads, 9).items()}
         return
-    c = _counted(KmerCounter, reads, k=9, l=12, batch_words=32, device=CPU)
-    save_counter(c, tmp_path / "c.npz")
-    with pytest.raises(NotImplementedError, match=match):
-        load_counter(_edited(tmp_path, tmp_path / "c.npz", **change),
-                     device=CPU)
+    whole = dict(naive_kmers(reads + more, 9))
+    if change.get("hash_first") is True:
+        from tsxcount_tpu.parallel.sharded import (
+            ShardedKmerCounter as JSharded,
+        )
+
+        # a single-device file of the GF(2) image, as older files say it
+        j = _counted(JKmerCounter, reads, k=9, l=12, batch_words=32,
+                     hash_first="gf2", hash_seed=3)
+        jckpt.save_counter(j, tmp_path / "j.npz")
+        port = load_counter(_edited(tmp_path, tmp_path / "j.npz",
+                                    hash_first=True), device=CPU)
+        assert port.hash_first == "gf2"
+        # a sharded GF(2) file from before routing_hash was written
+        js = _counted(JSharded, reads, k=9, n_shards=1, l=12,
+                      batch_words=32, routing_hash="gf2", hash_seed=3)
+        jckpt.save_counter(js, tmp_path / "js.npz")
+        with np.load(tmp_path / "js.npz") as data:
+            arrays = {f: data[f] for f in data.files}
+        meta = json.loads(str(arrays.pop("meta")))
+        del meta["routing_hash"]
+        np.savez(tmp_path / "old_sharded.npz", meta=json.dumps(meta),
+                 **arrays)
+        sharded = load_counter(tmp_path / "old_sharded.npz", device=CPU)
+        assert sharded.routing_hash == "gf2"
+        for c in (port, sharded):
+            assert c.to_dict() == dict(naive_kmers(reads, 9))
+            c.add_reads(more)
+            c.finish()
+            assert c.to_dict() == whole
+        return
+    kw = dict(k=9, l=12, batch_words=32) | change
+    j = _counted(JKmerCounter, reads, **kw)
+    jckpt.save_counter(j, tmp_path / "j.npz")
+    port = load_counter(tmp_path / "j.npz", batch_words=32, device=CPU)
+    assert (port.hash_first, port.mix_prefix) == (j.hash_first,
+                                                  j.mix_prefix)
+    assert port.to_dict() == j.to_dict()
+    port.add_reads(more)
+    port.finish()
+    assert port.to_dict() == whole
+    save_counter(port, tmp_path / "c.npz")
+    back = jckpt.load_counter(tmp_path / "c.npz", batch_words=32)
+    assert (back.hash_first, back.mix_prefix) == (j.hash_first,
+                                                  j.mix_prefix)
+    assert back.to_dict() == whole
 
 
 def test_newer_format_refused(tmp_path):

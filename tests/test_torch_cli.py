@@ -172,10 +172,22 @@ def test_cli_hash_first(fastq, tmp_path, hash_first):
 
 @pytest.mark.parametrize("flags", [["--hash-first", "gf2"], ["--mix-prefix"]],
                          ids=str)
-def test_cli_unported_options_refused(fastq, flags, capsys):
-    path, _ = fastq
-    assert main(_count(path, *flags, *CPU)) == 2
-    assert "Do not port" in capsys.readouterr().err
+def test_cli_unported_options_refused(fastq, tmp_path, flags, capsys):
+    """Once refused, now ported: at --shards 0 the option counts (exit 0,
+    the dump equal to the JAX CLI's and the naive count); at the default
+    --shards 1 it is ignored with the JAX CLI's warning."""
+    path, reads = fastq
+    ours, ref = tmp_path / "ours.count", tmp_path / "ref.count"
+    assert main(_count(path, "--shards", "0", *flags, "--dump", str(ours),
+                       *CPU)) == 0
+    assert jax_main(_count(path, "--shards", "0", *flags, "--dump",
+                           str(ref), "--platform", "cpu")) == 0
+    assert read_golden(ours) == read_golden(ref) == dict(
+        naive_kmers(reads, 9))
+    capsys.readouterr()
+    assert main(_count(path, *flags, *CPU)) == 0
+    assert f"warning: {flags[0]} is ignored with --shards >= 1" in (
+        capsys.readouterr().err)
 
 
 def test_cli_routing_hash_ignored_with_warning(fastq, capsys):
@@ -187,14 +199,25 @@ def test_cli_routing_hash_ignored_with_warning(fastq, capsys):
     assert "warning: --routing-hash is ignored" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("routing,rc", [("mix", 0), ("gf2", 2)])
-def test_cli_routing_hash_of_the_sharded_counter(fastq, capsys, routing, rc):
-    """At the default --shards 1 the sharded counter reads the flag: the
-    lane mix runs, the GF(2) routing is refused (the 'Do not port'
-    list)."""
-    path, _ = fastq
-    assert main(_count(path, "--routing-hash", routing, *CPU)) == rc
-    assert ("Do not port" in capsys.readouterr().err) == (rc == 2)
+# the case ids of the time the GF(2) routing was refused (exit 2)
+@pytest.mark.parametrize("routing", ["mix", "gf2"], ids=["mix-0", "gf2-2"])
+def test_cli_routing_hash_of_the_sharded_counter(fastq, tmp_path, routing):
+    """At the default --shards 1 the sharded counter reads the flag: both
+    routings count (the table too, whose slots the image addresses), and
+    --identity-hash (which forces the GF(2) routing) as well; every dump
+    equals the JAX CLI's and the naive count."""
+    path, reads = fastq
+    want = dict(naive_kmers(reads, 9))
+    runs = [["--routing-hash", routing],
+            ["--routing-hash", routing, "--mode", "table"]]
+    if routing == "gf2":
+        runs.append(["--identity-hash"])
+    for flags in runs:
+        ours, ref = tmp_path / "ours.count", tmp_path / "ref.count"
+        assert main(_count(path, *flags, "--dump", str(ours), *CPU)) == 0
+        assert jax_main(_count(path, *flags, "--dump", str(ref),
+                               "--platform", "cpu")) == 0
+        assert read_golden(ours) == read_golden(ref) == want, flags
 
 
 @pytest.mark.parametrize("mode", ["SERIAL", "TSX"])

@@ -610,3 +610,60 @@ def test_sharded_one_shard_on_card_matches_cpu(dev, k, backend, l, nccl):
             ["compact_flagged", "merge_sorted", "merge_dedupe_sorted"]
             + (["lane_mix"] if k == 127 else []))
     assert all(launches[name] > 0 for name in need), launches
+
+
+@pytest.mark.parametrize("k,kw", [(63, dict(hash_first="gf2")),
+                                  (31, dict(mix_prefix=True)),
+                                  (224, dict(mix_prefix=True))], ids=str)
+def test_last_options_on_card_match_cpu(dev, k, kw):
+    """hash_first="gf2" (the GF(2) image) and mix_prefix (extended keys;
+    17 key words at k=224, kernels 1-3's ceiling): dumps and store states
+    on the card equal the CPU's word for word, through kernels 1-3."""
+    from tsxcount_tpu_torch import _build
+
+    rng = np.random.default_rng(k)
+    reads = ["".join(rng.choice(list("ACGT" * max(8, k // 4) + "N"),
+                                size=rng.integers(k, k + 400)))
+             for _ in range(200)]
+    reads += reads[:50]
+    out = []
+    for d in (dev, "cpu"):
+        _build.reset_launch_counts()
+        c = KmerCounter(k=k, l=16, batch_words=512, merge_every=3,
+                        device=d, **kw)
+        c.add_reads(reads)
+        c.finish()
+        launches = _build.launch_counts()
+        out.append((c.to_dict(), c.distinct, c.total_kmers,
+                    c.store.state_to_reference(c.state)))
+        if d == dev:
+            assert all(launches[name] > 0 for name in (
+                "compact_flagged", "merge_sorted", "merge_dedupe_sorted"))
+            assert c.store.n_ops == (KmerSpec(k).lanes + 3
+                                     if c.mix_prefix else KmerSpec(k).lanes)
+    assert out[0][:3] == out[1][:3] and out[0][1] > 1000
+    for f, v in out[0][3].items():
+        np.testing.assert_array_equal(v, out[1][3][f], err_msg=f)
+
+
+@pytest.mark.parametrize("backend", ["sort", "table"])
+def test_gf2_routing_one_shard_on_card_matches_cpu(dev, backend):
+    """The sharded counter routed by GF(2) at one shard on the card counts
+    what it counts on the CPU and answers the same queries; the table's
+    slots are addressed by the GF(2) image."""
+    from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    rng = np.random.default_rng(5)
+    reads = ["".join(rng.choice(list("ACGTN"), size=rng.integers(14, 400)))
+             for _ in range(300)]
+    kw = dict(k=14, n_shards=1, l=16, backend=backend, batch_words=512,
+              routing_hash="gf2")
+    got = []
+    for d in (dev, "cpu"):
+        s = ShardedKmerCounter(device=d, **kw)
+        s.add_reads(reads)
+        s.finish()
+        assert s.hashed_store == (backend == "table")
+        want = s.to_dict()
+        got.append((want, s.get_counts(list(want)[:500] + ["A" * 14])))
+    assert got[0] == got[1] and len(got[0][0]) > 1000

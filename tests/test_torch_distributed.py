@@ -36,6 +36,14 @@ SCENARIOS = {  # name -> the counter's keywords beyond k, l, batch_words
     "lsm": dict(lsm=True, lsm_growth=2, merge_every=1, l=LSM_L,
                 batch_words=128),
 }
+# the GF(2) routing (group "gf2", run by tests/test_torch_sharded.py at
+# one and two ranks); identity_hash forces it with the identity matrix
+GF2_SCENARIOS = {
+    "gf2_sort": dict(backend="sort", routing_hash="gf2"),
+    "gf2_table": dict(backend="table", routing_hash="gf2"),
+    "gf2_lsm": dict(SCENARIOS["lsm"], routing_hash="gf2"),
+    "identity": dict(identity_hash=True),
+}
 
 
 # --- the rank worker (no JAX) ---------------------------------------------
@@ -110,6 +118,12 @@ def run_scenarios(rank: int, world: int, spec_path, out_path) -> None:
         c.finish()
         record(name, c)
 
+    for name, kw in GF2_SCENARIOS.items() if "gf2" in groups else ():
+        c = make(**kw)
+        c.add_reads(reads[rank::world])
+        c.finish()
+        record(name, c)
+
     # a carry that takes every destination's overflow, recovered exactly;
     # and one that overflows the carry too: TableFull on every rank
     for name in ("spill", "spill_hard") if "spill" in groups else ():
@@ -157,21 +171,25 @@ def run_scenarios(rank: int, world: int, spec_path, out_path) -> None:
         out["collision/full_sort"] = np.bool_(c._mix_full_sort)
 
     # checkpoints: the port's file reloads here; the JAX file (written at
-    # this n_shards) loads and resumes with the second half of the reads
-    for backend in ("sort", "table") if "ckpt" in groups else ():
-        c = make(backend=backend)
+    # this n_shards) loads and resumes with the second half of the reads;
+    # the lane mix's ("ckpt") and the GF(2) routing's ("gf2") files
+    ckpts = [(prefix, backend)
+             for prefix, group in (("", "ckpt"), ("gf2_", "gf2"))
+             if group in groups for backend in ("sort", "table")]
+    for prefix, backend in ckpts:
+        c = make(backend=backend, routing_hash="gf2" if prefix else "mix")
         c.add_reads(reads[rank::world])
-        own = tmp / f"port_{backend}.npz"
+        own = tmp / f"port_{prefix}{backend}.npz"
         checkpoint.save_counter(c, own)
         c = checkpoint.load_counter(own, batch_words=BW, device="cpu")
-        record(f"ckpt_{backend}_own", c, shard=False)
-        jax_file = tmp / f"jax_{backend}.npz"
+        record(f"ckpt_{prefix}{backend}_own", c, shard=False)
+        jax_file = tmp / f"jax_{prefix}{backend}.npz"
         if jax_file.exists():
             c = checkpoint.load_counter(jax_file, batch_words=BW,
                                         device="cpu")
             c.add_reads(spec["more_reads"][rank::world])
             c.finish()
-            record(f"ckpt_{backend}_jax", c, shard=False)
+            record(f"ckpt_{prefix}{backend}_jax", c, shard=False)
     np.savez(out_path, **out)
 
 
@@ -295,15 +313,19 @@ def jax_table_shard_dump(c, shard: int) -> list:
                       [str(int(x)) for x in counts]))
 
 
-def save_jax_checkpoints(tmp: pathlib.Path, n_shards: int, reads) -> dict:
-    """JAX counts of each backend over `reads`, saved for the ranks to
-    load; returns the counters."""
+def save_jax_checkpoints(tmp: pathlib.Path, n_shards: int, reads,
+                         routing: str = "mix") -> dict:
+    """JAX counts of each backend over `reads` routed through `routing`,
+    saved for the ranks to load (jax_<backend>.npz, with routing "gf2"
+    jax_gf2_<backend>.npz); returns the counters."""
     from tsxcount_tpu.core.checkpoint import save_counter
 
+    prefix, kw = ("gf2_", dict(routing_hash="gf2")) if routing == "gf2" \
+        else ("", {})
     out = {}
     for backend in ("sort", "table"):
-        c = jax_counter(n_shards, reads, backend=backend)
-        save_counter(c, tmp / f"jax_{backend}.npz")
+        c = jax_counter(n_shards, reads, backend=backend, **kw)
+        save_counter(c, tmp / f"jax_{prefix}{backend}.npz")
         out[backend] = c
     return out
 

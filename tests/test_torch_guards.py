@@ -1,11 +1,12 @@
 """Guards of the port: no JAX anywhere in it, an explicit device with no
-silent CPU fallback (counter and command line), loud refusals for what it
-does not port, and the kernel build's command line.  Pure checks, no
-tolerances involved."""
+silent CPU fallback (counter and command line), the options it once
+refused now counting, and the kernel build's command line.  Pure checks,
+no tolerances involved."""
 
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -26,6 +27,8 @@ from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
 from tsxcount_tpu_torch.ops.compact import compact_flagged  # noqa: E402
 from tsxcount_tpu_torch.ops.merge import merge_sorted  # noqa: E402
 from tsxcount_tpu_torch.ops.merge_dedupe import merge_dedupe_sorted  # noqa: E402
+
+from tests.test_packer import naive_kmers, rand_reads  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "tsxcount_tpu_torch"
@@ -122,9 +125,17 @@ def test_store_and_table_default_to_the_card(make):
     dict(hash_first="gf2"), dict(mix_prefix=True),
 ], ids=str)
 def test_out_of_slice_options_raise(kw):
-    args = dict(k=14, device="cpu") | kw
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KmerCounter(**args)
+    """The two options the port once refused (the "Do not port" list)
+    now build on the sort backend, store their images (GF(2)) or
+    extended keys (mix_prefix), and count what a naive count does."""
+    reads = rand_reads(np.random.default_rng(1), 20, 10, 80)
+    c = KmerCounter(**(dict(k=14, l=10, batch_words=64, device="cpu") | kw))
+    assert (c.hash_first, c.mix_prefix) == (kw.get("hash_first", False),
+                                            kw.get("mix_prefix", False))
+    assert c.store.n_ops == (4 if c.mix_prefix else 1)
+    c.add_reads(reads)
+    c.finish()
+    assert c.to_dict() == dict(naive_kmers(reads, 14))
 
 
 @pytest.mark.parametrize("kw,n_ops", [

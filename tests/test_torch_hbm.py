@@ -67,6 +67,40 @@ def test_options_add_their_buffers():
         flat.dedupe_peak_mb
 
 
+@pytest.mark.parametrize("kw", [
+    dict(k=31, mix_prefix=True), dict(k=224, mix_prefix=True),
+    dict(k=14, hash_first="gf2"), dict(k=63, hash_first="gf2"),
+], ids=str)
+def test_extended_key_and_gf2_terms(kw):
+    """mix_prefix holds lanes + 2 key columns (+ the flag operand) in the
+    state, the dedupe and the merges; the GF(2) product adds its planes
+    to the dedupe.  estimate_for of such a built counter (and of a
+    sharded one routed by GF(2)) is estimate_hbm of its options."""
+    geo = dict(l=25, batch_words=1 << 20)
+    est = estimate_hbm(**geo, **kw)
+    base = estimate_hbm(**geo, k=kw["k"])
+    assert preflight_check(est, capacity_mb=H100_MB) is None, est.as_dict()
+    assert est.dedupe_peak_mb > base.dedupe_peak_mb
+    if kw.get("mix_prefix"):
+        assert est.state_mb > base.state_mb
+        assert est.merge_peak_mb > base.merge_peak_mb
+    else:
+        assert (est.state_mb, est.merge_peak_mb) == (base.state_mb,
+                                                     base.merge_peak_mb)
+    c = KmerCounter(device="cpu", l=12, batch_words=64, lsm=False, **kw)
+    assert estimate_for(c) == estimate_hbm(
+        l=12, batch_words=64, lsm=False, merge_every=c.merge_every, **kw)
+    if kw.get("hash_first") == "gf2":
+        from tsxcount_tpu_torch import ShardedKmerCounter
+
+        s = ShardedKmerCounter(k=kw["k"], n_shards=1, l=12, batch_words=64,
+                               backend="table", routing_hash="gf2",
+                               device="cpu")
+        assert estimate_for(s) == estimate_hbm(
+            kw["k"], 12, 64, backend="table", hash_first="gf2", n_shards=1,
+            merge_every=s.merge_every)
+
+
 def test_capacity_needs_a_gpu_or_an_argument():
     est = estimate_hbm(k=14, l=20, batch_words=1 << 16)
     assert preflight_check(est, capacity_mb=H100_MB) is None

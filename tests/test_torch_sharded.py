@@ -2,9 +2,10 @@
 process group), its routing helpers and the weighted histogram, against the
 JAX package on the conftest's CPU mesh: dumps, totals, queries, shard
 rows, spill, the count_file modes, a real prefix collision, checkpoints
-crossing both ways, the stats keys and the memory model.  Several ranks:
-tests/test_torch_distributed.py.  Everything compared is an integer:
-exact."""
+crossing both ways, the stats keys and the memory model; and the GF(2)
+routing (routing_hash="gf2", identity_hash) at one shard and over two
+CPU ranks.  Several ranks otherwise: tests/test_torch_distributed.py.
+Everything compared is an integer: exact."""
 
 import json
 
@@ -38,6 +39,8 @@ from tsxcount_tpu_torch.utils.hbm import (  # noqa: E402
 
 from tests.test_torch_distributed import (  # noqa: E402
     BW,
+    GF2_SCENARIOS,
+    GROUPS,
     K,
     L,
     LSM_L,
@@ -49,6 +52,7 @@ from tests.test_torch_distributed import (  # noqa: E402
     jax_table_shard_dump,
     make_inputs,
     naive,
+    run_ranks,
     run_scenarios,
     save_jax_checkpoints,
 )
@@ -107,13 +111,91 @@ def test_owner_of_hash_and_starts_match_jax(n_shards, k):
 
 @pytest.fixture(scope="module")
 def one(tmp_path_factory):
-    """Every scenario at one shard, in this process, after the JAX
-    package wrote its checkpoints of the reads at n_shards 1."""
+    """Every scenario at one shard (the GF(2) routing's too), in this
+    process, after the JAX package wrote its checkpoints of the reads at
+    n_shards 1 (both routings)."""
     tmp = tmp_path_factory.mktemp("one_shard")
-    spec = make_inputs(tmp, 1, seed=11)
+    spec = make_inputs(tmp, 1, seed=11, groups=GROUPS + ("gf2",))
     save_jax_checkpoints(tmp, 1, spec["reads"])
+    save_jax_checkpoints(tmp, 1, spec["reads"], routing="gf2")
     run_scenarios(0, 1, tmp / "spec.json", tmp / "rank0.npz")
     return dict(np.load(tmp / "rank0.npz")), spec, tmp
+
+
+@pytest.fixture(scope="module")
+def two_gf2(tmp_path_factory):
+    """The GF(2) routing's scenarios over two gloo CPU ranks (rows routed
+    between processes by their GF(2) owners), after the JAX package wrote
+    its GF(2) checkpoints at n_shards 2."""
+    tmp = tmp_path_factory.mktemp("two_gf2")
+    spec = make_inputs(tmp, 2, seed=12, groups=("gf2",))
+    save_jax_checkpoints(tmp, 2, spec["reads"], routing="gf2")
+    return run_ranks(tmp, 2), spec, tmp
+
+
+def _gf2_case(request, n: int):
+    """(n, the ranks' results, the inputs, the temp dir) of n shards."""
+    if n == 1:
+        out, spec, tmp = request.getfixturevalue("one")
+        return 1, [out], spec, tmp
+    ranks, spec, tmp = request.getfixturevalue("two_gf2")
+    return 2, ranks, spec, tmp
+
+
+@pytest.mark.parametrize("n", [1, 2], ids=lambda n: f"n{n}")
+@pytest.mark.parametrize("name", list(GF2_SCENARIOS))
+def test_gf2_routing_equals_jax(request, n, name):
+    """routing_hash="gf2" (and identity_hash, which forces it) at one and
+    two shards: dumps, totals and queries on every rank equal the JAX
+    ShardedKmerCounter's and the naive count; each shard's sorted rows
+    (hashed keys and digits) or table k-mers equal the JAX shard's."""
+    n, ranks, spec, _ = _gf2_case(request, n)
+    kw = GF2_SCENARIOS[name]
+    j = jax_counter(n, spec["reads"], **kw)
+    want = j.to_dict()
+    assert want == naive(spec["reads"])
+    jq = j.get_counts(spec["queries"])
+    c = ShardedKmerCounter(**(dict(k=K, n_shards=1, l=L, batch_words=BW,
+                                   device="cpu") | kw))
+    assert c.routing_hash == j.routing_hash == "gf2"
+    assert c.hash_fn.identity == j.hash_fn.identity == (name == "identity")
+    for shard, out in enumerate(ranks):
+        assert as_dict(out, name) == want
+        assert int(out[f"{name}/distinct"]) == j.distinct
+        assert int(out[f"{name}/total"]) == j.total_kmers
+        assert out[f"{name}/queries"].tolist() == jq
+        if kw.get("backend") == "table":
+            assert out[f"{name}/shard_dump"].tolist() == [
+                list(p) for p in jax_table_shard_dump(j, shard)]
+            continue
+        keys, digits = jax_shard_rows(j, shard)
+        np.testing.assert_array_equal(out[f"{name}/shard_keys"], keys)
+        np.testing.assert_array_equal(out[f"{name}/shard_digits"], digits)
+        assert bool(out[f"{name}/lsm"]) == j.lsm
+
+
+@pytest.mark.parametrize("n", [1, 2], ids=lambda n: f"n{n}")
+@pytest.mark.parametrize("backend", ["sort", "table"])
+def test_gf2_checkpoints_cross(request, n, backend):
+    """The JAX file of the GF(2) routing resumes in the port; the port's
+    file reloads there and loads in the JAX package, which resumes it."""
+    from tsxcount_tpu.core.checkpoint import load_counter as j_load
+
+    n, ranks, spec, tmp = _gf2_case(request, n)
+    both = spec["reads"] + spec["more_reads"]
+    for out in ranks:
+        assert as_dict(out, f"ckpt_gf2_{backend}_jax") == naive(both)
+        assert as_dict(out, f"ckpt_gf2_{backend}_own") == naive(
+            spec["reads"])
+    with np.load(tmp / f"port_gf2_{backend}.npz") as data:
+        meta = json.loads(str(data["meta"]))
+    assert (meta["n_shards"], meta["routing_hash"]) == (n, "gf2")
+    j = j_load(tmp / f"port_gf2_{backend}.npz", batch_words=BW)
+    assert (j.n_shards, j.backend, j.routing_hash) == (n, backend, "gf2")
+    assert j.to_dict() == naive(spec["reads"])
+    j.add_reads(spec["more_reads"])
+    j.finish()
+    assert j.to_dict() == naive(both)
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))

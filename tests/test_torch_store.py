@@ -1,9 +1,10 @@
 """CountStore: the port's store merge (kernel 2's merge tree, then kernel 3,
 as plain versions on the CPU) against the JAX package's store merges — the
 Pallas path in interpret mode (tile 1024) and the XLA path — on the same
-seeded numpy state and batch histograms; plus the tail invariant, overflow,
-lookup and the state exchange with the JAX package.  Everything compared is
-an integer or a boolean: exact equality."""
+seeded numpy state and batch histograms (and the one-batch `merge`); plus
+the tail invariant, overflow, lookup and the state exchange with the JAX
+package.  Everything compared is an integer or a boolean: exact
+equality."""
 
 import numpy as np
 import pytest
@@ -107,6 +108,30 @@ def test_merge_stacked_matches_jax_xla(k, r):
     np.testing.assert_array_equal(got["keys"][:n], np.asarray(want.keys)[:n])
     np.testing.assert_array_equal(got["digits"][:n],
                                   np.asarray(want.digits)[:n])
+
+
+@pytest.mark.parametrize("k", [14, 33])
+def test_merge_of_one_batch_matches_jax(k):
+    """CountStore.merge (one batch histogram, the JAX store's one-batch
+    entry point) equals the JAX CountStore.merge, and merge_stacked of a
+    stack of one."""
+    cap = 2048
+    ref, uk, uc, uv = _inputs(k, cap, 500, 1, 512, seed=200 + k)
+    want = JCountStore(JKmerSpec(k), cap).merge(
+        _jax_state(ref), jnp.asarray(uk[0]), jnp.asarray(uc[0]),
+        jnp.asarray(uv[0]))
+    store = CountStore(KmerSpec(k), cap, "cpu")
+    st = store.merge(store.state_from_reference(ref),
+                     torch.from_numpy(uk[0].view(np.int32)),
+                     torch.from_numpy(uc[0]), torch.from_numpy(uv[0]))
+    got = store.state_to_reference(st)
+    n = int(want.n)
+    assert int(got["n"]) == n and not bool(got["overflowed"])
+    np.testing.assert_array_equal(got["keys"][:n], np.asarray(want.keys)[:n])
+    np.testing.assert_array_equal(got["digits"][:n],
+                                  np.asarray(want.digits)[:n])
+    _, stacked = _port_merge(k, cap, ref, uk, uc, uv)
+    assert all(torch.equal(a, b) for a, b in zip(st, stacked))
 
 
 def test_overflow_flag_matches_jax():

@@ -2,8 +2,8 @@
 
 The flags, defaults, `--mode` aliases, stderr lines and exit codes are the
 JAX package's (`tsxcount_tpu/cli.py`): 0 on success, 1 on a `--check`
-mismatch, 2 on a missing file, a ValueError or a refused option, 42 when
-the table is full, 200 on a `--checkabort` mismatch.  What differs:
+mismatch, 2 on a missing file or a ValueError, 42 when the table is full,
+200 on a `--checkabort` mismatch.  What differs:
 
   * `--platform cuda` (the default; `gpu` is an alias) or `cpu`.  Where no
     GPU is present the run stops with an ERROR line unless `--platform cpu`
@@ -16,10 +16,9 @@ the table is full, 200 on a `--checkabort` mismatch.  What differs:
     of N ranks under torchrun.  Every rank counts its share of the input
     and takes part in every read; rank 0 alone prints, dumps, checks and
     writes the state, and every rank exits with the same code.
-  * `--hash-first gf2`, `--mix-prefix` and `--routing-hash gf2` are
-    refused (the "Do not port" list); `--routing-hash` is ignored with a
-    warning at `--shards 0`, and `--hash-first` at `--shards` >= 1, as
-    the JAX command line ignores it there.
+  * `--routing-hash` is ignored with a warning at `--shards 0`, and
+    `--hash-first` and `--mix-prefix` at `--shards` >= 1, as the JAX
+    command line ignores them there.
   * `--profile DIR` writes a torch.profiler trace of the count and prints
     the device's busy time over it.
   * the memory preflight models the port's buffers (utils/hbm.py) against
@@ -110,21 +109,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="N handling: drop windows (default) or random "
                         "substitution (reference bug-compat)")
     c.add_argument("--hash-seed", type=int, default=None,
-                   help="GF(2) hash matrix seed of the table (default: fixed)")
+                   help="GF(2) hash matrix seed (default: fixed)")
     c.add_argument("--identity-hash", action="store_true",
                    help="debug: identity hash instead of random GF(2)")
     c.add_argument("--routing-hash", choices=("mix", "gf2"), default=None,
                    help="sharded routing bijection: 'mix' (the lane mix, "
-                        "default); 'gf2' is refused (not ported)")
+                        "default) or 'gf2' (the seeded GF(2) matrix, what "
+                        "sharded files written before the mix hold)")
     c.add_argument("--hash-first", choices=("auto", "mix", "gf2", "off"),
                    default="auto",
-                   help="sort backend: map keys through the lane-mix "
-                        "bijection before the dedupe and sort its >= 64-bit "
-                        "uniform prefix.  'auto' (default) engages it from "
-                        "k >= 113, 'mix' at any k, 'off' never; 'gf2' is "
-                        "refused (not ported)")
+                   help="plain counter (--shards 0), sort backend: map keys "
+                        "through a bijection before the dedupe and sort "
+                        "its >= 64-bit uniform prefix.  'auto' (default) "
+                        "engages the lane mix from k >= 113, 'mix' at any "
+                        "k, 'gf2' the GF(2) matrix, 'off' never")
     c.add_argument("--mix-prefix", action="store_true", default=None,
-                   help="refused: the extended-key dedupe is not ported")
+                   help="plain counter (--shards 0), sort backend: store "
+                        "keys extended by a 64-bit mixing hash and sort "
+                        "the dedupe on it (exact; k <= 224)")
     c.add_argument("--stats-json", action="store_true",
                    help="emit stats as one JSON line")
     c.add_argument("--progress", type=int, default=0, metavar="N",
@@ -284,11 +286,6 @@ def _count(args: argparse.Namespace, device, rank0: bool) -> int:
     from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED
     from tsxcount_tpu_torch.utils.goldenfile import write_golden
 
-    if args.mix_prefix or args.hash_first == "gf2":
-        # refused whatever --shards says (KmerCounter names the list)
-        raise NotImplementedError(
-            "--mix-prefix and --hash-first gf2 are on ROADMAP.md's 'Do not "
-            "port' list; use tsxcount_tpu for them")
     if args.shards == 0 and args.routing_hash is not None:
         print("warning: --routing-hash is ignored with --shards 0 (the "
               "plain counter routes nothing)", file=sys.stderr)
@@ -296,6 +293,9 @@ def _count(args: argparse.Namespace, device, rank0: bool) -> int:
         print("warning: --hash-first is ignored with --shards >= 1 (the "
               "sharded stream hashes for routing; use --shards 0 for the "
               "plain counter)", file=sys.stderr)
+    if args.shards >= 1 and args.mix_prefix is not None:
+        print("warning: --mix-prefix is ignored with --shards >= 1 (use "
+              "--shards 0 for the plain counter)", file=sys.stderr)
     kwargs = dict(
         k=args.k, l=args.l, s=args.s, backend=args.mode,
         batch_words=args.batch_words, n_policy=args.n_policy,
@@ -324,7 +324,7 @@ def _count(args: argparse.Namespace, device, rank0: bool) -> int:
             routing_hash=args.routing_hash or "mix", **kwargs)
     else:
         counter = KmerCounter(
-            identity_hash=args.identity_hash,
+            identity_hash=args.identity_hash, mix_prefix=args.mix_prefix,
             hash_first={"auto": None, "off": False}.get(args.hash_first,
                                                           args.hash_first),
             **kwargs)
@@ -410,7 +410,7 @@ def main(argv: list[str] | None = None) -> int:
     except FileNotFoundError as e:
         print(f"ERROR: file not found: {e.filename or e}", file=sys.stderr)
         return 2
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         print(f"ERROR: {e}", file=sys.stderr)
         return 2
 

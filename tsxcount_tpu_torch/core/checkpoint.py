@@ -2,14 +2,16 @@
 
 One .npz file holds a JSON `meta` record, the state arrays as `state_*`
 (the JAX package's StoreState or TableState fields, converted by
-`state_to_reference` / `state_from_reference`) and the table hash's
-`hash_matrix` / `hash_inverse`.  The keys, dtypes and layouts are those of
-`tsxcount_tpu/core/checkpoint.py` format 3, so a file written by either
-package loads in the other.  An LSM counter saves its collapsed top level.
-The port writes the archive without compression (np.load reads either),
-so saving a GB-sized state costs the disk write and no zlib pass on one
-host core; the state is converted to and from the JAX layout on the
-counter's device.
+`state_to_reference` / `state_from_reference`) and the GF(2) hash's
+`hash_matrix` / `hash_inverse`, which define the layout of a table and
+of a GF(2) store image (`hash_first="gf2"`, the sharded
+`routing_hash="gf2"`) and are restored on every backend.  The keys,
+dtypes and layouts are those of `tsxcount_tpu/core/checkpoint.py` format
+3, so a file written by either package loads in the other.  An LSM
+counter saves its collapsed top level.  The port writes the archive
+without compression (np.load reads either), so saving a GB-sized state
+costs the disk write and no zlib pass on one host core; the state is
+converted to and from the JAX layout on the counter's device.
 
 A sharded counter (parallel/sharded.py; `n_shards` >= 1 in the file,
 0 for KmerCounter) writes the JAX package's stacked arrays: every field
@@ -18,9 +20,9 @@ n_shards).  Saving and loading are collectives: rank 0 gathers the
 shards' states and writes the file; on load every rank reads the file and
 takes its own shard's row.
 
-Refused loudly: states of stores the port does not build (the
-`mix_prefix` extended keys, the `hash_first="gf2"` image and the sharded
-`routing_hash="gf2"` image, on ROADMAP's "Do not port" list).
+Older files load as the JAX package loads them: `hash_first: true` (the
+GF(2) image, before "mix" existed) as "gf2", and a sharded file without
+`routing_hash` (written before the lane mix) as the GF(2) routing.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import numpy as np
 import torch
 
 from tsxcount_tpu_torch.io.packer import PackStats
-from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 
 FORMAT_VERSION = 3
 _SHARD_SCALARS = ("n", "overflowed", "spilled")  # one value a shard
@@ -56,11 +57,11 @@ def save_counter(counter, path: str | Path) -> None:
         "s": counter.s,
         "backend": counter.backend,
         "n_policy": counter.n_policy,
-        "identity_hash": counter.identity_hash,
+        "identity_hash": counter.hash_fn.identity,
         "canonical": counter.canonical,
         "collapse_hp": counter.collapse_hp,
         "hash_first": counter.hash_first,
-        "mix_prefix": False,
+        "mix_prefix": counter.mix_prefix,
         "stats": dataclasses.asdict(counter.packer.stats),
         "batches_processed": counter.batches_processed,
         "lsm": counter.lsm,
@@ -73,15 +74,15 @@ def save_counter(counter, path: str | Path) -> None:
     }
     if counter.backend == "table":
         ref = counter.table.state_to_reference(counter.state)
-        hash_fn = counter.hash_fn
     else:
         counter._flush_pending()
         counter._collapse_if_lsm()  # the LSM: everything in the top level
         ref = counter.store.state_to_reference(counter.state)
-        # the sort backend hashes nothing, but the JAX loader reads these
-        hash_fn = GF2Hash(counter.spec, seed=counter.hash_seed,
-                          identity=counter.identity_hash)
-    arrays = {f"state_{name}": val for name, val in ref.items()}
+    _write(path, meta, ref, counter.hash_fn)
+
+
+def _write(path, meta: dict, state: dict, hash_fn) -> None:
+    arrays = {f"state_{name}": val for name, val in state.items()}
     arrays["hash_matrix"] = hash_fn.matrix
     arrays["hash_inverse"] = hash_fn.inverse
     np.savez(path, meta=json.dumps(meta), **arrays)
@@ -132,7 +133,7 @@ def _write_sharded(counter, path, stats, state) -> None:
         "s": counter.s,
         "backend": counter.backend,
         "n_policy": counter.n_policy,
-        "identity_hash": False,
+        "identity_hash": counter.hash_fn.identity,
         "canonical": counter.canonical,
         "collapse_hp": counter.collapse_hp,
         "hash_first": False,
@@ -147,12 +148,7 @@ def _write_sharded(counter, path, stats, state) -> None:
         "max_reprobes": (counter.table.max_reprobes
                          if counter.backend == "table" else 0),
     }
-    # the routing map is the lane mix; the JAX loader reads these
-    hash_fn = GF2Hash(counter.spec, seed=counter.hash_seed)
-    arrays = {f"state_{name}": val for name, val in state.items()}
-    arrays["hash_matrix"] = hash_fn.matrix
-    arrays["hash_inverse"] = hash_fn.inverse
-    np.savez(path, meta=json.dumps(meta), **arrays)
+    _write(path, meta, state, counter.hash_fn)
 
 
 def _gather_shards(arr: np.ndarray, counter) -> list[np.ndarray] | None:
@@ -193,26 +189,6 @@ def _state_array(name: str, data) -> np.ndarray:
     raise KeyError(f"checkpoint missing state field {name}")
 
 
-def _refuse(meta) -> None:
-    if meta.get("n_shards", 0) and (
-            meta.get("routing_hash", "gf2") != "mix"
-            or meta.get("identity_hash", False)):
-        raise NotImplementedError(
-            "sharded checkpoint of the GF(2) routing image (routing_hash "
-            "'gf2', or identity_hash): on ROADMAP.md's 'Do not port' list; "
-            "load it with tsxcount_tpu")
-    if meta.get("mix_prefix", False):
-        raise NotImplementedError(
-            "checkpoint with mix_prefix=True: the extended-key store is on "
-            "ROADMAP.md's 'Do not port' list; load it with tsxcount_tpu")
-    # files before format 3's "mix" wrote True for the GF(2) image
-    if meta.get("hash_first", False) in (True, "gf2"):
-        raise NotImplementedError(
-            "checkpoint with hash_first='gf2' (or True, which older files "
-            "wrote for it): the GF(2) store image is on ROADMAP.md's 'Do "
-            "not port' list; load it with tsxcount_tpu")
-
-
 def load_counter(path: str | Path, batch_words: int = 1 << 16,
                  device: str | torch.device | None = "cuda"):
     """Rebuild a KmerCounter, or a ShardedKmerCounter (every rank of a
@@ -230,7 +206,6 @@ def load_counter(path: str | Path, batch_words: int = 1 << 16,
         meta = json.loads(str(data["meta"]))
         if meta["format"] > FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint format {meta['format']}")
-        _refuse(meta)
         if meta.get("n_shards", 0):
             return _load_sharded(meta, data, batch_words, device)
         counter = KmerCounter(
@@ -239,16 +214,19 @@ def load_counter(path: str | Path, batch_words: int = 1 << 16,
             identity_hash=meta["identity_hash"],
             canonical=meta.get("canonical", False),
             collapse_homopolymers=meta.get("collapse_hp", True),
-            hash_first=meta.get("hash_first", False),
+            # older files wrote True for the GF(2) image ("mix" came later)
+            hash_first=("gf2" if meta.get("hash_first", False) is True
+                        else meta.get("hash_first", False)),
+            mix_prefix=meta.get("mix_prefix", False),
             lsm=meta.get("lsm", False),
             lsm_growth=meta.get("lsm_growth", 8),
             merge_every=meta.get("merge_every", 4),
             max_reprobes=meta.get("max_reprobes") or 64,
             device=device,
         )
+        # the matrix defines a table's or a GF(2) image's layout: the file's
+        counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
         if counter.backend == "table":
-            # the hash matrix defines the table's layout: use the file's
-            counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
             names = ("slots", "n", "spilled", "probe_hist")
             counter.load_table_state(
                 {name: _state_array(name, data) for name in names})
@@ -273,14 +251,19 @@ def _load_sharded(meta, data, batch_words, device):
     counter = ShardedKmerCounter(
         k=meta["k"], n_shards=n, l=meta["l"], s=meta["s"],
         backend=meta["backend"], batch_words=batch_words,
-        n_policy=meta["n_policy"], canonical=meta.get("canonical", False),
+        n_policy=meta["n_policy"], identity_hash=meta["identity_hash"],
+        canonical=meta.get("canonical", False),
         collapse_homopolymers=meta.get("collapse_hp", True),
         lsm=meta.get("lsm", False) or None,  # False: the counter's rule
         lsm_growth=meta.get("lsm_growth", 8),
         merge_every=meta.get("merge_every", 4),
         max_reprobes=meta.get("max_reprobes") or 64,
+        # files written before the lane mix routed through GF(2)
+        routing_hash=meta.get("routing_hash", "gf2"),
         device=device,
     )
+    # the GF(2) routing image's layout: the file's matrix
+    counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
     shard_states_from_reference(counter, {
         name: _state_array(name, data) for name in counter._reference_fields})
     # the file's ingest stats are the whole stream's: one rank holds them

@@ -8,9 +8,14 @@ strings map onto the two):
     tree, then kernel 3 into the sorted store, core/store.py; into the
     LSM store's L0 where its rule engages, core/lsm.py).  From 8
     lanes (k >= 113), or with hash_first, each batch's keys first go
-    through the lane-mix bijection (ops/mix.py, one kernel): the store
-    holds the images, the dedupe sorts only their >= 64-bit prefix, and a
-    detected prefix collision makes count_file recount with the full sort;
+    through a bijection, the lane mix (ops/mix.py, one kernel) or with
+    hash_first="gf2" the seeded GF(2) matrix (ops/gf2.py, a float32
+    matmul on bit planes): the store holds the images and the dedupe
+    sorts only their >= 64-bit prefix.  With mix_prefix the keys are
+    extended by two mixing-hash columns instead (ops/mix.py mix_cols),
+    the store holds the extended keys and the dedupe sorts (flag,
+    mix_hi, mix_lo).  Either way a detected prefix collision makes
+    count_file recount with the full sort;
   * "table": an insert into the quotient table (core/table.py) in reprobe
     rounds of shrinking width (kernels 5, 4 and 1 per round), the widths
     chosen on the host from the batch's distinct count and each round's
@@ -53,7 +58,13 @@ from tsxcount_tpu_torch.io.packer import PackedBatch, ReadPacker, add_stats
 from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
 from tsxcount_tpu_torch.ops.count import UniqueCounts, count_unique
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
-from tsxcount_tpu_torch.ops.mix import LaneMixBijection
+from tsxcount_tpu_torch.ops.mix import (
+    LaneMixBijection,
+    extend_cols,
+    extend_keys_host,
+    make_ext_spec,
+    strip_mix,
+)
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.utils.goldenfile import read_golden
 from tsxcount_tpu_torch.utils.sequence import kmers_to_strings, strings_to_kmers
@@ -73,13 +84,6 @@ _TABLE_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
 
 _QUERY_BATCH = 1 << 16
 _HINT_SAMPLE = 64  # reads sampled for the auto read-length hint
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tsxcount_tpu_torch yet ({item} of "
-        f"ROADMAP.md); use tsxcount_tpu for it"
-    )
 
 
 def _peek_read_lens(path) -> list[int]:
@@ -122,8 +126,8 @@ class PrefixCollision(RuntimeError):
     Detection is exact (ops/count.py sort_uniform_prefix).  count_file()
     handles it by recounting the file with the full sort; it reaches the
     caller only from add_reads() + finish(), where the input cannot be
-    replayed: rerun with hash_first=False, or feed the input via
-    count_file."""
+    replayed: rerun with hash_first=False and mix_prefix off, or feed the
+    input via count_file."""
 
 
 def table_insert(table: QuotientTable, state, uc: UniqueCounts):
@@ -253,29 +257,41 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         if backend not in ("sort", "table"):
             raise ValueError(f"backend must be 'sort', 'table' or a "
                              f"reference mode {sorted(MODE_TO_BACKEND)}")
-        if mix_prefix:
-            raise _not_ported("mix_prefix", "the 'Do not port' list")
         if lsm_growth < 2:
             raise ValueError("lsm_growth must be >= 2")
         self.spec = KmerSpec(k)
-        # hash_first: False or "mix" (True aliases it): the store holds the
-        # lane-mix images and the dedupe sorts their uniform prefix; None
-        # engages it on the sort backend from 8 lanes up, as the JAX
-        # package does, so that both hold the same store states
+        # hash_first: False, "mix" (True aliases it) or "gf2": the store
+        # holds the bijection's images and the dedupe sorts their uniform
+        # prefix; None engages the lane mix on the sort backend from 8
+        # lanes up unless mix_prefix is asked for, as the JAX package
+        # does, so that both hold the same store states
         if hash_first is None:
-            hash_first = ("mix" if backend == "sort"
+            hash_first = ("mix" if backend == "sort" and not mix_prefix
                           and self.spec.lanes >= _MIX_AUTO_MIN_LANES
                           else False)
         if hash_first is True:
             hash_first = "mix"
-        if hash_first == "gf2":
-            raise _not_ported("hash_first='gf2'", "the 'Do not port' list")
-        if hash_first not in (False, "mix"):
+        if hash_first not in (False, "mix", "gf2"):
             raise ValueError("hash_first must be False, True/'mix', or "
                              "'gf2'")
+        if hash_first == "gf2" and identity_hash:
+            hash_first = False  # the identity image is not uniform
         self.hash_first = hash_first if backend == "sort" else False
-        self.key_map = (LaneMixBijection(self.spec)
-                        if self.hash_first == "mix" else None)
+        # mix_prefix: the store holds extended keys (raw lanes + mix_lo,
+        # mix_hi) and the dedupe sorts (flag, mix_hi, mix_lo).  None is
+        # off: the JAX package's auto rule (from 99 lanes) never engages
+        if mix_prefix and self.hash_first:
+            raise ValueError("mix_prefix and hash_first are exclusive "
+                             "(both replace the dedupe sort comparator)")
+        self.mix_prefix = bool(mix_prefix and backend == "sort")
+        self.store_spec = (make_ext_spec(self.spec) if self.mix_prefix
+                           else self.spec)
+        # the GF(2) hash: the table's, the "gf2" store image's, and the
+        # matrices a checkpoint writes on either backend
+        self.hash_fn = GF2Hash(self.spec, seed=hash_seed,
+                               identity=identity_hash)
+        self.key_map = {"mix": LaneMixBijection(self.spec),
+                        "gf2": self.hash_fn}.get(self.hash_first)
         # set after a detected prefix collision: count_file recounts with
         # the full sort
         self._mix_full_sort = False
@@ -293,10 +309,6 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         self.prefetch_depth = max(1, prefetch_depth)
         self.canonical = canonical
         self.collapse_hp = collapse_homopolymers
-        # the table's hash; a checkpoint writes its matrices on either
-        # backend, as the JAX package does
-        self.hash_seed = hash_seed
-        self.identity_hash = identity_hash
         self.lsm = False
         self.lsm_growth = lsm_growth
         if backend == "sort":
@@ -311,15 +323,14 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
             use_lsm = (capacity * (lsm_growth - 1) > lsm_growth ** 2 * flush
                        if lsm is None else lsm)
             if use_lsm and capacity > flush * lsm_growth:
-                self.store = LSMStore(self.spec, capacity, flush,
+                self.store = LSMStore(self.store_spec, capacity, flush,
                                       growth=lsm_growth, device=self.device)
                 self.lsm = True
             else:
-                self.store = CountStore(self.spec, capacity, self.device)
+                self.store = CountStore(self.store_spec, capacity,
+                                        self.device)
         else:
             self.merge_every = 1
-            self.hash_fn = GF2Hash(self.spec, seed=hash_seed,
-                                   identity=identity_hash)
             self.table = QuotientTable(self.spec, l, self.hash_fn,
                                        max_reprobes=max_reprobes,
                                        device=self.device)
@@ -390,14 +401,20 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
 
     def _dedupe(self, buf: torch.Tensor) -> UniqueCounts:
         batch = self.batch
-        cols = extract_kmer_cols(buf[: batch.total_words], batch)
-        if self.canonical:  # before the lane mix, as in the JAX package
-            cols = canonicalize_cols(cols, self.spec)
+        keys = extract_kmer_cols(buf[: batch.total_words], batch)
+        if self.canonical:  # before the hash, as in the JAX package
+            keys = canonicalize_cols(keys, self.spec)
+        if self.hash_first == "mix":
+            keys = self.key_map.apply_cols(keys)
+        elif self.hash_first == "gf2":  # the product takes stacked rows
+            keys = self.key_map.apply(torch.stack(keys, dim=-1))
+        elif self.mix_prefix:
+            keys = extend_cols(keys)
         valid = intervals_to_valid(buf[batch.total_words :], batch)
-        if self.key_map is None:
-            return count_unique(cols, valid, self.spec)
-        uc = count_unique(self.key_map.apply_cols(cols), valid, self.spec,
-                          uniform_prefix=not self._mix_full_sort)
+        uniform = bool((self.hash_first or self.mix_prefix)
+                       and not self._mix_full_sort)
+        uc = count_unique(keys, valid, self.store_spec,
+                          uniform_prefix=uniform)
         if uc.collided is not None:  # kept on the device, read once a file
             self._collided = (uc.collided if self._collided is None
                               else self._collided | uc.collided)
@@ -489,9 +506,9 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         use_native: True = the C++ parser (raises if it cannot be built),
         False = the Python packer, None = the C++ parser if it builds.
 
-        A detected dedupe-prefix collision (lane mix only) is handled here
-        by recounting the file with the full sort, when this counter held
-        no earlier data; otherwise it raises PrefixCollision.
+        A detected dedupe-prefix collision (hash_first or mix_prefix) is
+        handled here by recounting the file with the full sort, when this
+        counter held no earlier data; otherwise it raises PrefixCollision.
         """
         fresh = (self.batches_processed == 0
                  and self.packer.stats.reads == 0)
@@ -566,6 +583,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
                                 self.spec).numpy().view(np.uint32)
         if self.key_map is not None:  # the store holds the images
             keys = self.key_map.apply_host(keys)
+        if self.mix_prefix:  # the store holds (raw, mix) extended keys
+            keys = extend_keys_host(keys)
         keys = keys.view(np.int32)
         out: list[int] = []
         for off in range(0, len(kmers), _QUERY_BATCH):
@@ -592,6 +611,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         self._collapse_if_lsm()
         if self.backend == "sort":
             keys, counts, _ = self.store.to_host(self.state, self.key_map)
+            if self.mix_prefix:  # drop the mix columns
+                keys = strip_mix(keys)
         else:
             keys, counts, _ = self.table.to_host(self.state)
         owed = self._hp_owed_emit()

@@ -82,6 +82,13 @@ class CountStore:
             overflowed=torch.zeros((), dtype=torch.bool, device=dev),
         )
 
+    def merge(self, state: StoreState, ukeys: torch.Tensor,
+              ucounts: torch.Tensor, uvalid: torch.Tensor) -> StoreState:
+        """Fold one batch histogram (count_unique's keys [P, lanes],
+        counts [P], valid [P]) into the store: merge_stacked of one."""
+        return self.merge_stacked(state, ukeys[None], ucounts[None],
+                                  uvalid[None])
+
     def merge_stacked(self, state: StoreState, ukeys: torch.Tensor,
                       ucounts: torch.Tensor, uvalid: torch.Tensor
                       ) -> StoreState:

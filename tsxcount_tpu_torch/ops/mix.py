@@ -1,9 +1,20 @@
-"""The lane-mix bijection of k-mer keys (the lane-mix kernel,
-csrc/lane_mix.cu).
+"""Cheap ARX mixing of k-mer keys: the mix-prefix extended key, and the
+lane-mix bijection (the lane-mix kernel, csrc/lane_mix.cu).
 
-A copy of the part of the JAX package's ops/mix.py that the sort backend
-needs: `LaneMixBijection`, an invertible map of the 2k-bit key space built
-as an unbalanced XOR-Feistel over the uint32 lanes.  With `hash_first`
+A copy of the JAX package's ops/mix.py.  Two uses of the same
+multiply-xorshift arithmetic:
+
+  * `mix_cols`: a 64-bit mixing hash (mix_lo, mix_hi) of a key, a function
+    of the key only.  With `mix_prefix` the store holds EXTENDED keys
+    [lane_0 .. lane_{L-1}, mix_lo, mix_hi] at `make_ext_spec(spec)`, whose
+    top lane is full, so the invalid flag is an operand of its own and the
+    dedupe sorts (flag, mix_hi, mix_lo) with the raw lanes as payload.
+    Equal extended keys are equal raw keys; exports drop the two columns
+    (`strip_mix`), queries recompute them (`extend_keys_host`).  The JAX
+    package computes the columns in XLA, outside any Pallas kernel; here
+    they are plain PyTorch elementwise ops on the `_TorchU32` arithmetic.
+  * `LaneMixBijection`, an invertible map of the 2k-bit key space built
+    as an unbalanced XOR-Feistel over the uint32 lanes.  With `hash_first`
 ("mix", automatic from 8 lanes, k >= 113) the store holds each key's image,
 the dedupe sorts only a >= 64-bit prefix of it (ops/count.py), queries map
 through the mix on the host and the export maps back on the device.
@@ -31,8 +42,10 @@ import numpy as np
 import torch
 
 from tsxcount_tpu_torch import _build
-from tsxcount_tpu_torch.config import KmerSpec
+from tsxcount_tpu_torch.config import WORD_BITS, KmerSpec
 from tsxcount_tpu_torch.ops.lanes import MASK32, i32, u32
+
+MIX_LANES = 2  # extended key = raw lanes + (mix_lo, mix_hi)
 
 # distinct odd multipliers per input lane (splitmix64 / murmur3 family
 # constants, truncated to 32 bits), as in the JAX package
@@ -83,6 +96,93 @@ class _TorchU32:
     @staticmethod
     def shr(x, s: int):
         return x >> s
+
+
+# --- the mix-prefix extended key ---------------------------------------------
+
+def _fmix(h, m1: int, m2: int, xp):
+    """murmur3 fmix32 avalanche with multipliers m1, m2."""
+    h = h ^ xp.shr(h, 16)
+    h = xp.mul(h, m1)
+    h = h ^ xp.shr(h, 13)
+    h = xp.mul(h, m2)
+    return h ^ xp.shr(h, 16)
+
+
+def _mix(cols, xp) -> tuple:
+    """(mix_lo, mix_hi) of per-lane uint32 columns (lsb lane first)."""
+    n = len(cols)
+    if n > len(_LANE_MULT_A):
+        raise ValueError(f"mix_cols supports up to {len(_LANE_MULT_A)} lanes")
+    h1 = 0x9E3779B9 ^ ((n * 0x85EBCA6B) & MASK32)
+    h2 = 0xC2B2AE35 ^ ((n * 0x27D4EB2F) & MASK32)
+    for i, c in enumerate(cols):
+        ka = xp.mul(c, _LANE_MULT_A[i])
+        ka = ka ^ xp.shr(ka, 15)
+        kb = xp.mul(c, _LANE_MULT_B[i])
+        kb = kb ^ xp.shr(kb, 17)
+        h1 = xp.add(xp.mul(h1 ^ ka, 5), 0xE6546B64)
+        h2 = xp.add(xp.mul(h2 ^ kb, 5), 0x38495AB5)
+    # cross-coupled final avalanche: every lane reaches both words
+    h1 = h1 ^ xp.mul(h2, 0x9E3779B1)
+    lo = _fmix(h1, 0x85EBCA6B, 0xC2B2AE35, xp)
+    hi = _fmix(h2 ^ lo, 0xCC9E2D51, 0x1B873593, xp)
+    return lo, hi
+
+
+def mix_cols(cols) -> tuple[torch.Tensor, torch.Tensor]:
+    """64-bit mixing hash of per-lane int32 columns (lsb lane first):
+    (mix_lo, mix_hi) int32 columns, bit for bit the JAX package's."""
+    lo, hi = _mix([u32(c) for c in cols], _TorchU32)
+    return i32(lo), i32(hi)
+
+
+def mix_cols_host(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """mix_cols of stacked (N, lanes) uint32 keys on the host (numpy)."""
+    cols = [keys[:, j].astype(np.uint32) for j in range(keys.shape[1])]
+    lo, hi = _mix(cols, _NumpyU32)
+    return lo.astype(np.uint32), hi.astype(np.uint32)
+
+
+def extend_cols(cols) -> list[torch.Tensor]:
+    """Raw lane columns -> extended key columns [lanes..., mix_lo, mix_hi]."""
+    return list(cols) + list(mix_cols(cols))
+
+
+def extend_keys(keys: torch.Tensor) -> torch.Tensor:
+    """(..., lanes) raw int32 keys -> (..., lanes + 2) extended keys."""
+    lo, hi = mix_cols([keys[..., j] for j in range(keys.shape[-1])])
+    return torch.cat([keys, lo[..., None], hi[..., None]], dim=-1)
+
+
+def extend_keys_host(keys: np.ndarray) -> np.ndarray:
+    """(N, lanes) raw uint32 keys -> (N, lanes + 2) extended keys."""
+    lo, hi = mix_cols_host(keys)
+    return np.concatenate([keys, lo[:, None], hi[:, None]],
+                          axis=1).astype(np.uint32)
+
+
+def strip_mix(keys_ext):
+    """(..., lanes + 2) extended keys -> (..., lanes) raw keys."""
+    return keys_ext[..., :-MIX_LANES]
+
+
+def make_ext_spec(spec: KmerSpec) -> KmerSpec:
+    """The KmerSpec of the extended key: 32 * (lanes + 2) bits, so its top
+    lane (mix_hi) is full, the invalid flag stands alone as the msb
+    operand, and the uniform-prefix sort compares (flag, mix_hi, mix_lo).
+    Raises above k = 224, where lanes + 2 exceeds 16 lanes."""
+    ext_lanes = spec.lanes + MIX_LANES
+    if ext_lanes * 16 > 256:
+        raise ValueError(
+            f"mix-prefix extended keys support k <= 224 (k={spec.k} needs "
+            f"{ext_lanes} lanes > the 256-base spec ceiling); use the "
+            "full-comparator sort for wider keys"
+        )
+    return KmerSpec(ext_lanes * WORD_BITS // 2)
+
+
+# --- the lane-mix bijection --------------------------------------------------
 
 
 def _fmix_g(h, xp):

@@ -6,11 +6,13 @@ and holds that shard's store on its own device.  A step takes one packed
 batch on every rank:
 
   * extract the windows, fold them to canonical if asked, and map them
-    through the lane-mix bijection (ops/mix.py, one kernel) BEFORE the
-    dedupe, so that the dedupe sort (kernel 1 compacts its runs) orders
-    the rows by hashed key: the owner of a row, a range partition of the
-    top hash bits (`owner_of_hash`), is then a prefix structure of the
-    sorted rows, and each destination's rows are one contiguous slice;
+    through the routing bijection (`routing_hash`: the lane mix,
+    ops/mix.py, one kernel; or the seeded GF(2) matrix, ops/gf2.py, a
+    float32 matmul on bit planes) BEFORE the dedupe, so that the dedupe
+    sort (kernel 1 compacts its runs) orders the rows by hashed key: the
+    owner of a row, a range partition of the top hash bits
+    (`owner_of_hash`), is then a prefix structure of the sorted rows, and
+    each destination's rows are one contiguous slice;
   * cut `route_cap` rows a destination (one gather of [n, route_cap]
     rows) and exchange keys, counts and lengths with one
     `all_to_all_single` each (int32 words; equal splits);
@@ -35,9 +37,10 @@ short of batches stepping empty ones (parallel/distributed.py), so no
 rank waits in a collective that another never enters.
 
 Stores hold HASHED keys (the bijective image) at n_shards > 1, on the
-table backend at any n_shards, and from 8 lanes up; queries are hashed on
-the way in and exports mapped back on the way out.  A single sort shard
-below 8 lanes stores raw keys and counts what `KmerCounter` counts.
+table backend at any n_shards, and from 8 lanes up under the lane mix;
+queries are hashed on the way in and exports mapped back on the way out.
+A single sort shard otherwise stores raw keys and counts what
+`KmerCounter` counts.
 """
 
 from __future__ import annotations
@@ -69,7 +72,6 @@ from tsxcount_tpu_torch.core.counter import (
     IngestProgressMixin,
     PrefixCollision,
     TableFull,
-    _not_ported,
     table_insert,
 )
 from tsxcount_tpu_torch.core.lsm import LSMStore
@@ -152,10 +154,6 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             raise ValueError(f"unknown backend {backend}")
         if routing_hash not in ("mix", "gf2"):
             raise ValueError("routing_hash must be 'mix' or 'gf2'")
-        if routing_hash == "gf2" or identity_hash:
-            # the JAX package's identity_hash forces the GF(2) routing
-            raise _not_ported("routing_hash='gf2' (and identity_hash, "
-                              "which selects it)", "the 'Do not port' list")
         if lsm_growth < 2:
             raise ValueError("lsm_growth must be >= 2")
         self.group = init_shard_group(n_shards, device, dist_backend)
@@ -175,20 +173,28 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         self.seed = seed
         self.canonical = canonical
         self.collapse_hp = collapse_homopolymers
-        self.hash_seed = hash_seed
+        # the routing bijection: the lane mix, or the seeded GF(2) matrix
+        # (what files written before the mix hold); identity_hash forces
+        # GF(2) with the identity matrix, whose image is the raw key
+        self.hash_fn = GF2Hash(self.spec, seed=hash_seed,
+                               identity=identity_hash)
+        if identity_hash:
+            routing_hash = "gf2"
         self.routing_hash = routing_hash
-        self.route_map = LaneMixBijection(self.spec)
+        self.route_map = (LaneMixBijection(self.spec)
+                          if routing_hash == "mix" else self.hash_fn)
         # one sort shard below 8 lanes stores raw keys (every row is its
         # own); the table's slot addressing needs uniform low bits, and
-        # from 8 lanes the image's prefix sort beats the full one
+        # from 8 lanes the mix image's prefix sort beats the full one
         self.hashed_store = (n_shards > 1 or backend == "table"
-                             or self.spec.lanes >= 8)
+                             or (routing_hash == "mix"
+                                 and self.spec.lanes >= 8))
         self.merge_every = max(1, merge_every) if backend == "sort" else 1
         l_local = max(1, l - max(0, n_shards.bit_length() - 1))
         cap_per_shard = max(1, (1 << l) // n_shards)
         if backend == "table":
             # the stream is hashed already: the shard table runs an
-            # identity mapping, and its export maps back through the mix
+            # identity mapping, and its export maps back through route_map
             self.table = QuotientTable(
                 self.spec, l_local, GF2Hash(self.spec, identity=True),
                 max_reprobes=max_reprobes, device=self.device)
@@ -357,20 +363,24 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         return self._empty
 
     def _route(self, buf: torch.Tensor):
-        """One batch: extract -> (canonical) -> mix -> dedupe -> slices
+        """One batch: extract -> (canonical) -> hash -> dedupe -> slices
         -> spill carry -> exchange.  Returns this rank's received runs
         (keys [n, route_cap, lanes], counts [n, route_cap], lens [n])."""
         batch, spec = self.batch, self.spec
         n, cap, lanes = self.n_shards, self.route_cap, spec.lanes
         dev = buf.device
-        cols = extract_kmer_cols(buf[: batch.total_words], batch)
-        if self.canonical:  # before the mix, as in the JAX package
-            cols = canonicalize_cols(cols, spec)
-        if self.hashed_store:
-            cols = self.route_map.apply_cols(cols)
+        keys = extract_kmer_cols(buf[: batch.total_words], batch)
+        if self.canonical:  # before the hash, as in the JAX package
+            keys = canonicalize_cols(keys, spec)
+        if self.hashed_store and self.routing_hash == "mix":
+            keys = self.route_map.apply_cols(keys)
+        elif self.hashed_store:  # the GF(2) product takes stacked rows
+            keys = self.route_map.apply(torch.stack(keys, dim=-1))
         valid = intervals_to_valid(buf[batch.total_words :], batch)
-        uc = count_unique(cols, valid, spec, uniform_prefix=(
-            self.hashed_store and not self._mix_full_sort))
+        # the identity image is the raw key: not uniform, full sort
+        uc = count_unique(keys, valid, spec, uniform_prefix=(
+            self.hashed_store and not self._mix_full_sort
+            and not self.hash_fn.identity))
         owner = owner_of_hash(uc.keys[:, -1], spec, n)
         starts = _owner_starts(torch.where(uc.valid, owner, n), n)
         lens = starts[1:] - starts[:-1]
@@ -617,7 +627,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         """Stream (kmer string, count), shard after shard (each ascending
         by stored key, or the table's slot order), on every rank: each
         shard's rows are gathered to every rank and mapped back through
-        the mix on the device."""
+        the routing bijection on the device."""
         self._prepare()
         keys, counts = self._shard_export()
         owed = self._hp_owed_emit()

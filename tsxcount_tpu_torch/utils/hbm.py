@@ -15,7 +15,17 @@ factors do not apply).  Bytes per row are read off the code, not measured:
   * the batch dedupe (ops/window.py, ops/count.py): the int64 window
     stream, the packed operands, the int64 sort words with torch.sort's
     values, indices and working space, kernel 1's output, the unpacked
-    [P, lanes] keys; canonical mode adds its int64 lane temporaries;
+    [P, lanes] keys; canonical mode adds its int64 lane temporaries, the
+    lane mix its output columns;
+  * mix_prefix (ops/mix.py): the state, the dedupe's operands, sort and
+    keys, the pending histograms and the merges all hold the EXTENDED
+    key, lanes + 2 columns (+ the flag operand, the top lane being full),
+    and mix_cols adds its int64 accumulators and products;
+  * the GF(2) product (ops/gf2.py; hash_first="gf2", the sharded GF(2)
+    routing, and the plain table's hash at its insert): the stacked keys
+    in and out, and one 2^20-row chunk of bit planes, 32 B a bit (int32
+    and float32 planes in, float32 and int32 out, pack_bits' two int64
+    copies);
   * the table (core/table.py): its flat slot array, a split round's sort
     and columns at full width, and the digit renormalisation's int64
     temporaries over every slot;
@@ -40,6 +50,8 @@ import dataclasses
 
 from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, route_capacity
 from tsxcount_tpu_torch.core.lsm import LSMStore
+from tsxcount_tpu_torch.ops.gf2 import _CHUNK_ROWS as GF2_CHUNK_ROWS
+from tsxcount_tpu_torch.ops.mix import make_ext_spec
 
 MB = 1 << 20
 
@@ -69,23 +81,34 @@ def estimate_hbm(
     prefetch_depth: int = 3,
     n_shards: int = 0,
     capacity_factor: float = 2.0,
+    mix_prefix: bool = False,
 ) -> HbmEstimate:
     """Peak device bytes of one counting run of the port, in MiB: of the
     KmerCounter (n_shards 0), or of one shard's device of the sharded
-    counter (n_shards >= 1; hash_first then says whether its store holds
-    the mix's images)."""
+    counter (n_shards >= 1; hash_first then names the routing bijection
+    where its store holds images, else False).  hash_first: False, "mix"
+    (True aliases it) or "gf2"."""
     spec = KmerSpec(k)
+    p = BatchSpec(spec, batch_words).positions
+    raw_lanes = spec.lanes
+    gf2 = (8 * raw_lanes * p  # the stacked keys in and out, and a chunk
+           + 32 * 32 * raw_lanes * min(p, GF2_CHUNK_ROWS))  # of planes
+    if mix_prefix:  # everything past the extraction holds lanes + 2
+        spec = make_ext_spec(spec)
     lanes = spec.lanes
     n_ops = lanes if spec.top_lane_bits < 32 else lanes + 1
-    p = BatchSpec(spec, batch_words).positions
     cap = 1 << l
     # extraction (three int64 streams), operands, the sort words with
     # values, indices and working space, kernel 1's output, the keys
     dedupe = p * (96 + 16 * n_ops + 8 * lanes)
-    if hash_first:
+    if hash_first == "gf2":
+        dedupe += gf2
+    elif hash_first:
         dedupe += p * 4 * lanes  # the lane mix's output columns
+    if mix_prefix:
+        dedupe += p * 48  # mix_cols' int64 accumulators and products
     if canonical:
-        dedupe += p * 32 * lanes  # forward, reverse and select, int64
+        dedupe += p * 32 * raw_lanes  # forward, reverse and select, int64
     pending_row = 4 * lanes + 5  # a histogram row: keys, count, valid
     flush = max(1, merge_every) * p
     routing = 0
@@ -116,6 +139,8 @@ def estimate_hbm(
         merge = width * (pending_row + 120 + 24 * lanes) + 40 * cap
         if n_shards:
             merge += width * (96 + 16 * n_ops + 8 * lanes)
+        else:  # the table's own GF(2) hash of the batch's keys
+            merge += gf2
     else:
         row = 4 * n_ops + 8  # a store row: operands + int64 count
         fold = 12 * n_ops + 25  # kernel 3's output, tail copies, mask
@@ -151,10 +176,12 @@ def estimate_for(counter) -> HbmEstimate:
         batch_words=counter.batch.capacity_words, backend=counter.backend,
         merge_every=counter.merge_every, lsm=counter.lsm,
         lsm_growth=counter.lsm_growth,
-        hash_first=counter.hashed_store if sharded else counter.hash_first,
+        hash_first=((counter.hashed_store and counter.routing_hash)
+                    if sharded else counter.hash_first),
         canonical=counter.canonical, prefetch_depth=counter.prefetch_depth,
         n_shards=counter.n_shards if sharded else 0,
-        capacity_factor=counter.capacity_factor if sharded else 2.0)
+        capacity_factor=counter.capacity_factor if sharded else 2.0,
+        mix_prefix=getattr(counter, "mix_prefix", False))
 
 
 def device_hbm_capacity_mb() -> float:
