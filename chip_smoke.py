@@ -8,6 +8,9 @@ non-zero and no result line is printed):
   1. environment: a CUDA device of capability (9, 0), its name and power
      limit as nvidia-smi reports them;
   2. build: the nvcc kernel library and the native FASTQ parser, timed;
+     kernels 4 and 5 at every column count up to the cap (20) without a
+     stack frame or local memory (cuobjdump's resource usage; the
+     registers a thread of 16-20 columns printed);
   3. each CUDA kernel against its plain PyTorch version on the card, on
      seeded inputs at the main paths' shapes plus hard cases — exact
      equality (all outputs are integers) — with the kernel's, the plain
@@ -25,7 +28,10 @@ non-zero and no result line is printed):
      kernel 4 timed as the table calls it, one launch over a round's four
      value columns, and kernel 5 as one launch over the two k=14 probe
      columns and as one column, both with the 32-byte sectors they touch
-     (the sector floor beside the bound);
+     (the sector floor beside the bound); both also at the wide table's
+     widths on the same round (kernel 5 on 17 and 20 columns, kernel 4
+     on 19 and 20: regions of one flat array of S_COL words each), exact,
+     timed beside index_select / index_add_ on the same columns;
   4. end to end, sort backend: the seed-42 bench FASTQ (bench.py, 20,000
      reads) counted at k=14 with the CLI's defaults; totals, the full
      sorted export against an independent numpy count, point queries, the
@@ -105,6 +111,13 @@ non-zero and no result line is printed):
      --mix-prefix`, `--shards 0 --hash-first gf2` and `--routing-hash gf2
      --mode table` (exit 0, the k=14 totals); the memory estimate against
      the peak of three of its counts;
+ 10. the wide table: the bench FASTQ on the table at k = 256, l = 25
+     (20 slot columns; kernel 5 reads 17 a round, kernel 4 adds 19),
+     against phase 6's numpy count at k = 256 with no spill, one launch
+     of kernels 4 and 5 per split round; cold and warm walls, the card's
+     busy time, the rounds, the fill and the memory estimate against the
+     peak; the same at one shard (ShardedKmerCounter); the small file's
+     table states on the card and the CPU at k = 209 and 256;
 then the kernels' JSON line (the contract's keys; extra times, floors and
 bounds only in the kernel_time lines), the nvidia-smi line, and as the
 last line
@@ -119,6 +132,7 @@ import contextlib
 import gc
 import io
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -136,6 +150,7 @@ from tsxcount_tpu_torch import KmerCounter, _build  # noqa: E402
 from tsxcount_tpu_torch.core.store import CountStore  # noqa: E402
 from tsxcount_tpu_torch.io import native  # noqa: E402
 from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    MAX_APPLY_COLS,
     apply_sorted_unique,
     apply_sorted_unique_plain,
     gather_sorted,
@@ -302,6 +317,41 @@ def build() -> None:
     t2 = time.perf_counter()
     phase("build", kernels_s=round(t1 - t0, 3), parser_s=round(t2 - t1, 3),
           library=_build.library_path().name)
+    check_apply_registers()
+
+
+def check_apply_registers() -> None:
+    """Kernels 4 and 5 keep their NC column words in registers at every
+    width up to the cap: no instantiation of either may use a stack frame
+    or local memory (a spill), read from the built library's resource
+    usage (cuobjdump); the widths from 16 up are printed."""
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run(
+        [str(tool), "--dump-resource-usage", str(_build.library_path())],
+        capture_output=True, text=True, check=True).stdout
+    usage, func = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            func = re.search(r"(gather_sorted|apply_sorted_unique)_kernel"
+                             r"ILi(\d+)E", m.group(1))
+            continue
+        if func and "REG:" in line:
+            res = dict((k, int(v)) for k, v in
+                       re.findall(r"(\w+):(\d+)", line))
+            usage[(func.group(1), int(func.group(2)))] = res
+            func = None
+    want = {(n, nc) for n in ("gather_sorted", "apply_sorted_unique")
+            for nc in range(1, MAX_APPLY_COLS + 1)}
+    if set(usage) != want:
+        raise AssertionError(f"apply kernels in the library: "
+                             f"{sorted(set(usage) ^ want)} missing or extra")
+    for (name, nc), res in sorted(usage.items()):
+        if nc >= 16:
+            phase("registers", kernel=name, columns=nc, registers=res["REG"],
+                  stack=res["STACK"], local=res["LOCAL"])
+        if res["STACK"] or res["LOCAL"]:
+            raise AssertionError(f"{name}<{nc}> spills: {res}")
 
 
 # --- phase 3 ----------------------------------------------------------------
@@ -601,6 +651,10 @@ def check_store_junk_tail() -> int:
 
 
 S_COL = 1 << 26      # one column region of the k=14, l=26 table
+# kernel 5's and kernel 4's column sets of the wide table's round (k = 241-
+# 256: 16 lanes + the used flag; + digits 0 and 1), and a whole slot's 20
+WIDE_GATHER_COLS = (17, 20)
+WIDE_APPLY_COLS = (19, 20)
 W_ROUND = 1 << 24    # round-0 width of a 2^20-word batch (P = 16 * 2^20)
 N_ACTIVE = 12 << 20  # rows of that round with a k-mer (distinct per batch)
 
@@ -691,6 +745,16 @@ def check_apply_kernels(results: dict) -> None:
     idx_g = torch.where((dstg & 1) == 1, dstg >> 1, 0).to(torch.int64)
     slots2d = flat2.view(2, S_COL)
     w = dstg.numel()
+    extra = dict(
+        sector_floor_ms=bytes_ms(w * 4 + 2 * w * 4 + 2 * sectors_g * 32),
+        ms_one_column=cuda_ms(lambda: gather_sorted(col, dstg)),
+        library_ms_one_column=cuda_ms(
+            lambda: torch.index_select(col, 0, idx_g)),
+        bound_ms_one_column=bytes_ms(w * 8 + words_g * 4))
+    for n_cols in WIDE_GATHER_COLS:  # the wide table's probe, one slot
+        wide = gather_times(dstg, n_cols, words_g, sectors_g, idx_g)
+        worst_g = max(worst_g, wide.pop("max_abs_err"))
+        extra |= {f"{key}_cols{n_cols}": v for key, v in wide.items()}
     results["gather_sorted"] = dict(
         max_abs_err=worst_g,
         ms=cuda_ms(lambda: gather_sorted(pair, dstg)),
@@ -700,12 +764,7 @@ def check_apply_kernels(results: dict) -> None:
         # each column read once (4 B; 32 B per distinct sector for the
         # floor that the data's scatter puts above it)
         bound_ms=bytes_ms(w * 4 + 2 * w * 4 + 2 * words_g * 4),
-        extra=dict(
-            sector_floor_ms=bytes_ms(w * 4 + 2 * w * 4 + 2 * sectors_g * 32),
-            ms_one_column=cuda_ms(lambda: gather_sorted(col, dstg)),
-            library_ms_one_column=cuda_ms(
-                lambda: torch.index_select(col, 0, idx_g)),
-            bound_ms_one_column=bytes_ms(w * 8 + words_g * 4)))
+        extra=extra)
     results["apply_sorted_unique"]["max_abs_err"] = worst_a
     phase("kernel_shape", name="gather_sorted", column_words=S_COL,
           elements=w, columns=2, live_gather=live_g.numel(),
@@ -713,24 +772,29 @@ def check_apply_kernels(results: dict) -> None:
           segments_64B=segments_g)
 
 
-def round_values(dsta: torch.Tensor) -> list:
-    """Kernel 4's value columns of the k=14 table's round 0 into an empty
-    table, without the digit-2 column (as core/table.py passes them): every
-    live row wins its slot, so key word and used flag are non-zero there;
-    digit 0 is the count (1..999), digit 1 zero (counts below 2^20)."""
+def round_values(dsta: torch.Tensor, lanes: int = 1,
+                 digit2: bool = False) -> list:
+    """Kernel 4's value columns of a table's round 0 into an empty table,
+    without the digit-2 column (as core/table.py passes them) unless
+    digit2: every live row wins its slot, so key lanes and used flag are
+    non-zero there; digit 0 is the count (1..999), digits 1 and 2 zero
+    (counts below 2^20).  The k=14 table has one key lane, k = 256 16."""
     w = dsta.numel()
-    return [gpu(rng.integers(1, 1 << 28, w, dtype=np.uint32)),
-            gpu(rng.integers(1, 1000, w).astype(np.int32)),
-            torch.zeros(w, dtype=torch.int32, device=DEV),
-            torch.ones(w, dtype=torch.int32, device=DEV)]
+    keys = [gpu(rng.integers(1, 1 << 28, w, dtype=np.uint32))] + [
+        gpu(rng.integers(1, 2**32, w, dtype=np.uint32))
+        for _ in range(lanes - 1)]
+    zero = torch.zeros(w, dtype=torch.int32, device=DEV)
+    return keys + [gpu(rng.integers(1, 1000, w).astype(np.int32)), zero,
+                   *([zero] * digit2),
+                   torch.ones(w, dtype=torch.int32, device=DEV)]
 
 
-def check_apply_round(results: dict, dsta: torch.Tensor) -> int:
-    """Kernel 4 over the four value columns of one main-shape round, on
-    column regions of one flat slot array: exact against the plain
-    version, then timed beside one index_add_ on the flat array at
-    precomputed c * S + address (the yardstick) and the bound."""
-    vals = round_values(dsta)
+def apply_times(dsta: torch.Tensor, vals: list, plain: bool) -> dict:
+    """Kernel 4 over the value columns `vals` of one round, on column
+    regions of one flat slot array: exact against the plain version, then
+    timed beside one index_add_ on the flat array at precomputed c * S +
+    address (the yardstick), with its bytes bound and sector floor (and
+    the plain version's time where `plain`)."""
     n_cols = len(vals)
     flat0 = gpu(rng.integers(0, 2**32, n_cols * S_COL, dtype=np.uint32))
     regions = lambda f: [f[c * S_COL : (c + 1) * S_COL] for c in range(n_cols)]
@@ -738,33 +802,78 @@ def check_apply_round(results: dict, dsta: torch.Tensor) -> int:
     apply_sorted_unique(regions(got), dsta, vals)
     apply_sorted_unique_plain(regions(want), dsta, vals)
     err = max_err((got,), (want,))
-    phase("kernel", name="apply_sorted_unique", case="round_4_columns",
-          elements=dsta.numel(), columns=n_cols, max_abs_err=err)
+    del got, want
+    phase("kernel", name="apply_sorted_unique",
+          case=f"round_{n_cols}_columns", elements=dsta.numel(),
+          columns=n_cols, max_abs_err=err)
     live = (dsta & 1) == 1
     addr = live_addr(dsta)
     idx = torch.cat([c * S_COL + addr for c in range(n_cols)])
     lib_vals = torch.cat([v[live] for v in vals])
-    scratch = flat0.clone()
+    scratch = flat0
     cols = regions(scratch)
     # dst2 read once; per column its live values read; 4 B read and 4 B
     # written per non-zero update
     nonzero = [int((v[live] != 0).sum()) for v in vals]
     sectors = [torch.unique_consecutive(addr[v[live] != 0] >> 3).numel()
                for v in vals]
-    results["apply_sorted_unique"] = dict(
+    streamed = dsta.numel() * 4 + n_cols * addr.numel() * 4
+    out = dict(
+        max_abs_err=err,
         ms=cuda_ms(lambda: apply_sorted_unique(cols, dsta, vals)),
-        plain_ms=cuda_ms(lambda: apply_sorted_unique_plain(cols, dsta, vals)),
         library_ms=cuda_ms(lambda: scratch.index_add_(0, idx, lib_vals)),
-        bound_ms=bytes_ms(dsta.numel() * 4 + n_cols * addr.numel() * 4
-                          + sum(nonzero) * 8),
-        extra=dict(sector_floor_ms=bytes_ms(dsta.numel() * 4
-                                            + n_cols * addr.numel() * 4
-                                            + 2 * 32 * sum(sectors))))
+        bound_ms=bytes_ms(streamed + sum(nonzero) * 8),
+        sector_floor_ms=bytes_ms(streamed + 2 * 32 * sum(sectors)))
+    if plain:
+        out["plain_ms"] = cuda_ms(
+            lambda: apply_sorted_unique_plain(cols, dsta, vals))
     phase("kernel_shape", name="apply_sorted_unique", column_words=S_COL,
           elements=dsta.numel(), columns=n_cols, live=addr.numel(),
           nonzero_updates=nonzero, sectors_32B=sectors,
           sector_bytes_moved=2 * 32 * sum(sectors))
+    return out
+
+
+def check_apply_round(results: dict, dsta: torch.Tensor) -> int:
+    """Kernel 4 as the table calls it: one launch over the four value
+    columns of the k=14 table's main-shape round (the contract's time),
+    and over the wide table's 19 (k = 241-256: 16 lanes, digits 0 and 1,
+    used) and a whole slot's 20 (the cap), each in its kernel_time
+    extras (ms_cols19, ...)."""
+    r = apply_times(dsta, round_values(dsta), plain=True)
+    extra = dict(sector_floor_ms=r.pop("sector_floor_ms"))
+    err = r["max_abs_err"]
+    for n_cols in WIDE_APPLY_COLS:
+        w = apply_times(dsta, round_values(dsta, lanes=16,
+                                           digit2=n_cols == 20),
+                        plain=False)
+        err = max(err, w.pop("max_abs_err"))
+        extra |= {f"{key}_cols{n_cols}": v for key, v in w.items()}
+    results["apply_sorted_unique"] = r | dict(extra=extra)
     return err
+
+
+def gather_times(dstg: torch.Tensor, n_cols: int, words_g: int,
+                 sectors_g: int, idx_g) -> dict:
+    """Kernel 5 over n_cols regions of one flat slot array at the main
+    round's dstg: exact against the plain version, timed beside one
+    index_select over the same columns, with its bytes bound and sector
+    floor."""
+    flat = gpu(rng.integers(0, 2**32, n_cols * S_COL, dtype=np.uint32))
+    cols = [flat[c * S_COL : (c + 1) * S_COL] for c in range(n_cols)]
+    err = max_err(gather_sorted(cols, dstg)[0],
+                  gather_sorted_plain(cols, dstg)[0])
+    phase("kernel", name="gather_sorted", case=f"main_{n_cols}_columns",
+          elements=dstg.numel(), columns=n_cols, max_abs_err=err)
+    w = dstg.numel()
+    slots2d = flat.view(n_cols, S_COL)
+    streamed = w * 4 + n_cols * w * 4
+    return dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: gather_sorted(cols, dstg)),
+        library_ms=cuda_ms(lambda: torch.index_select(slots2d, 1, idx_g)),
+        bound_ms=bytes_ms(streamed + n_cols * words_g * 4),
+        sector_floor_ms=bytes_ms(streamed + n_cols * sectors_g * 32))
 
 
 # --- phase 4 ----------------------------------------------------------------
@@ -981,14 +1090,14 @@ def table_end_to_end(path: Path, want_keys, want_counts) -> dict:
     return launches
 
 
-def card_vs_cpu() -> None:
+def card_vs_cpu(k: int = K) -> None:
     """A small file counted on the card and on the CPU (plain versions of
-    every kernel): the table states must match word for word."""
+    every kernel) at k: the table states must match word for word."""
     path = _build.BUILD_DIR / "small.2000.fastq"
     bench.ensure_synth_fastq(path, 2000, seed=7)
     states = []
     for dev in ("cuda", "cpu"):
-        c = KmerCounter(k=K, l=22, backend="table", batch_words=1 << 14,
+        c = KmerCounter(k=k, l=22, backend="table", batch_words=1 << 14,
                         device=dev)
         widths = record_widths(c)
         c.count_file(path, use_native=True)
@@ -996,7 +1105,8 @@ def card_vs_cpu() -> None:
     err = max(int(np.abs(states[0][f].astype(np.int64)
                          - states[1][f].astype(np.int64)).max())
               for f in states[0])
-    phase("table_card_vs_cpu", fastq=path.name, batches=c.batches_processed,
+    phase("table_card_vs_cpu", fastq=path.name, k=k,
+          batches=c.batches_processed,
           distinct=int(states[0]["n"]), rounds=len(widths),
           max_round=max(r for r, _ in widths), max_abs_err=err)
     if err:
@@ -2240,6 +2350,119 @@ def last_cli_runs(path: Path) -> dict:
     return launches
 
 
+# --- phase 10 ---------------------------------------------------------------
+
+WIDE_TABLE = dict(k=256, l=25, backend="table", batch_words=1 << 20)
+
+
+def busy_breakdown(prof, n: int = 6) -> dict:
+    """Device ms in a finished trace: the n aten ops with the most self
+    device time, and the port's own kernels (csrc/) by name."""
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0))
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])[:n]
+    own: dict = {}
+    for e in prof.events():
+        m = re.search(r"tsx::.*?(\w+_kernel)", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            own[m.group(1)] = (own.get(m.group(1), 0.0)
+                               + e.time_range.end - e.time_range.start)
+    return dict(top_ops_ms={k: round(v / 1e3, 3) for k, v in ops},
+                own_kernels_ms={k: round(v / 1e3, 3)
+                                for k, v in sorted(own.items())})
+
+
+def check_wide_table(c, want: tuple, tag: str) -> None:
+    """Totals, no spill, and the full export against the numpy count."""
+    total, distinct = c.total_kmers, c.distinct
+    if (total, distinct) != (int(want[1].sum()), len(want[0])):
+        raise AssertionError(f"{tag}: totals {total}/{distinct} != "
+                             f"{int(want[1].sum())}/{len(want[0])}")
+    if int(c.state.spilled):
+        raise AssertionError(f"{tag}: {int(c.state.spilled)} spilled")
+    keys, counts = (sharded_arrays(c) if hasattr(c, "n_shards")
+                    else export_lanes(c))
+    check_wide_arrays(keys, counts, want, tag)
+
+
+def wide_table(path: Path, want: tuple) -> dict:
+    """Phase 10: the table at k = 256, l = 25 (20 slot columns: kernel 5
+    on 17 of them a round, kernel 4 on 19), the bench FASTQ against phase
+    6's numpy count at k = 256: cold and warm walls, warm device busy,
+    the split rounds, the fill, the memory estimate against the peak; the
+    same at one shard; and the small file's card and CPU table states at
+    k = 209 and 256.  Returns the launches of the two cold counts (each
+    read from counts zeroed just before it)."""
+    launches = dict.fromkeys(_build.LAUNCHES, 0)
+    t0 = time.perf_counter()
+    tag = "10 table k=256 l=25"
+
+    def made() -> tuple:
+        c = KmerCounter(device="cuda", **WIDE_TABLE)
+        widths = record_widths(c)
+        return c, widths, timed_count(c, path)
+
+    _build.reset_launch_counts()
+    c, widths, cold = peak_checked(tag, made, counter_estimate)
+    run = _build.launch_counts()
+    require_kernels(run, TABLE_KERNELS, tag)
+    for name in ("apply_sorted_unique", "gather_sorted"):
+        if run[name] != len(widths):
+            raise AssertionError(f"{tag}: {name} launched {run[name]} "
+                                 f"times in {len(widths)} split rounds")
+    check_wide_table(c, want, tag)
+    rounds = list(widths)
+    c.reset()
+    warm = timed_count(c, path)
+    check_wide_table(c, want, tag + " warm")
+    c.reset()
+    prof = traced(lambda: c.count_file(path, use_native=True))
+    busy = device_busy_us(prof) / 1e3
+    check_wide_table(c, want, tag + " busy")
+    st = c.stats()
+    phase("e2e_wide_table", run=tag, slot_cols=c.table.slot_cols,
+          cold_s=round(cold, 4), warm_s=round(warm, 4),
+          kmers_per_s_warm=round(c.total_kmers / warm),
+          warm_device_busy_ms=round(busy, 3), total_kmers=c.total_kmers,
+          distinct=c.distinct, fill_factor=st["fill_factor"],
+          spilled=st["spilled"], probe_histogram=st["probe_histogram"],
+          split_rounds=len(rounds), rounds=rounds, launches=run,
+          **busy_breakdown(prof))
+    for name in launches:
+        launches[name] += run[name]
+    del c, prof
+    phase("wide_table", part="plain",
+          seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    tag = "10 sharded table k=256 l=25, one shard"
+    _build.reset_launch_counts()
+    c, cold = peak_checked(tag, lambda: made_sharded(path, **WIDE_TABLE),
+                           counter_estimate)
+    run = _build.launch_counts()
+    require_kernels(run, TABLE_KERNELS, tag)
+    check_wide_table(c, want, tag)
+    c.reset()
+    prof = traced(lambda: c.count_file(path, use_native=True))
+    busy = device_busy_us(prof) / 1e3
+    check_wide_table(c, want, tag + " busy")
+    phase("e2e_wide_table", run=tag, cold_s=round(cold, 4),
+          warm_device_busy_ms=round(busy, 3), hashed_store=c.hashed_store,
+          spill_recovered=c.stats()["spill_recovered"], launches=run,
+          **busy_breakdown(prof))
+    del prof
+    for name in launches:
+        launches[name] += run[name]
+    del c
+    phase("wide_table", part="one shard",
+          seconds=round(time.perf_counter() - t0, 3))
+    for k in (209, 256):
+        t0 = time.perf_counter()
+        card_vs_cpu(k)
+        phase("wide_table", part=f"card_vs_cpu k={k}",
+              seconds=round(time.perf_counter() - t0, 3))
+    return launches
+
+
 def check_errors(results: dict) -> None:
     for kname, r in results.items():
         if r["max_abs_err"] != 0:
@@ -2279,6 +2502,9 @@ def main() -> int:
     by_path["last_options"] = last_options(path, (want_keys, want_counts),
                                            wants, results)
     phase("last_options", seconds=round(time.perf_counter() - t0, 3))
+    t0 = time.perf_counter()
+    by_path["wide_table"] = wide_table(path, wants[256])
+    phase("wide_table", seconds=round(time.perf_counter() - t0, 3))
     check_errors(results)
     for kname, r in results.items():
         times = {k: v for k, v in r.items() if k not in ("max_abs_err",

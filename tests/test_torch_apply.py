@@ -211,11 +211,23 @@ def test_gather_column_set_matches_jax_per_column():
 
 
 def test_apply_column_sets_checked():
-    """One value column per slot column, 1..16 columns of one length."""
+    """One value column per slot column, 1..20 columns of one length: 20
+    (a whole slot at k = 256) are taken in one call, 21 refused."""
     col = torch.zeros(S, dtype=torch.int32)
     dst2 = val = torch.ones(8, dtype=torch.int32)
+    slot = torch.zeros(20 * S, dtype=torch.int32)
+    cols = [slot[c * S : (c + 1) * S] for c in range(20)]
+    vals = [torch.full((8,), c + 1, dtype=torch.int32) for c in range(20)]
+    words8 = torch.arange(1, 17, 2, dtype=torch.int32)  # words 0..7, live
+    apply_sorted_unique(cols, words8, vals)
+    assert all(torch.equal(c[:8], v) and not c[8:].any()
+               for c, v in zip(cols, vals))
+    got, _ = gather_sorted(cols, words8)
+    assert all(map(torch.equal, got, vals))
     with pytest.raises(ValueError):
-        apply_sorted_unique([col] * 17, dst2, [val] * 17)
+        apply_sorted_unique([col] * 21, dst2, [val] * 21)
+    with pytest.raises(ValueError):
+        gather_sorted([col] * 21, dst2)
     with pytest.raises(ValueError):
         apply_sorted_unique([col, col.clone()], dst2, [val])
     with pytest.raises(ValueError):

@@ -105,6 +105,46 @@ def test_jax_checkpoint_resumes_in_port(tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
+def test_save_mid_stream_keeps_buffered_reads(tmp_path, kind):
+    """A save after add_reads with no finish() counts the reads the packer
+    still holds first: the file's state, stats and batches equal those of
+    a finished count of the same reads; it resumes to the naive count in
+    the port and in the JAX package; and the counter that saved goes on
+    to the same count."""
+    import dataclasses
+
+    rng = np.random.default_rng(8)
+    reads = rand_reads(rng, 20, 20, 90)
+    first, rest = reads[:10], reads[10:]
+    kw = dict(k=17, l=13, batch_words=32) | KINDS[kind]
+    want = dict(naive_kmers(reads, 17))
+    c = KmerCounter(device=CPU, **kw)
+    c.add_reads(first)
+    assert c.packer._cur_word > 0  # a partial batch is buffered
+    save_counter(c, tmp_path / "mid.npz")
+    done = _counted(KmerCounter, first, device=CPU, **kw)
+    with np.load(tmp_path / "mid.npz") as data:
+        meta = json.loads(str(data["meta"]))
+    assert meta["stats"] == json.loads(json.dumps(
+        dataclasses.asdict(done.packer.stats)))
+    assert meta["batches_processed"] == done.batches_processed
+    loaded = load_counter(tmp_path / "mid.npz", batch_words=32, device=CPU)
+    assert loaded.to_dict() == dict(naive_kmers(first, 17))
+    assert sum(loaded.to_dict().values()) == loaded.total_kmers
+    loaded.add_reads(rest)
+    loaded.finish()
+    assert loaded.to_dict() == want
+    assert loaded.total_kmers == sum(want.values())
+    back = jckpt.load_counter(tmp_path / "mid.npz", batch_words=32)
+    back.add_reads(rest)
+    back.finish()
+    assert back.to_dict() == want
+    c.add_reads(rest)
+    c.finish()
+    assert c.to_dict() == want and c.total_kmers == sum(want.values())
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
 def test_split_run_is_exact(tmp_path, kind):
     """Counting a file whole, or its two halves with a save and a load
     between them, gives identical dumps and totals."""

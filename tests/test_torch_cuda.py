@@ -226,7 +226,7 @@ def test_gather_and_apply_kernels(dev, s, n_live, n_dead, tail):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n_cols", [1, 5, 12])
+@pytest.mark.parametrize("n_cols", [1, 5, 12, 17, 19, 20])
 def test_apply_columns_in_one_launch(dev, n_cols):
     """Column regions of one flat array in one launch, with all-zero, partly
     zero and wrapping value columns, against the plain version."""
@@ -280,10 +280,10 @@ def test_merge_dedupe_repeats_bit_identical(dev, m, n, n_keys, hi):
             assert torch.equal(g[:r], w[:r])
 
 
-@pytest.mark.parametrize("n_cols", [1, 2, 5, 12])
+@pytest.mark.parametrize("n_cols", [1, 2, 5, 12, 17, 19, 20])
 def test_gather_every_row_of_long_runs(dev, n_cols):
     """The table's probe: every row of a run reads the same slot word, over
-    column sets of 1-12 regions of one flat array, with a dead tail, and
+    column sets of 1-20 regions of one flat array, with a dead tail, and
     over an offset view of dst2; the one-column calls agree."""
     rng = np.random.default_rng(3 + n_cols)
     s = 1 << 20

@@ -21,6 +21,7 @@ from tsxcount_tpu_torch import (  # noqa: E402
 )
 from tsxcount_tpu_torch.io import native  # noqa: E402
 from tsxcount_tpu_torch.ops.apply import (  # noqa: E402
+    MAX_APPLY_COLS,
     apply_sorted_unique,
     gather_sorted,
 )
@@ -241,7 +242,8 @@ def test_wrappers_check_dtype_shape_contiguity():
         merge_dedupe_sorted((i32, i32), (i32, i32), 1, 1)
     with pytest.raises(TypeError):  # slot words are int32 bit patterns
         gather_sorted(i32.long(), i32)
-    for cols in ([], [i32] * 17, [i32, i32[:8]]):  # 1..16 of one length
+    # 1..MAX_APPLY_COLS of one length
+    for cols in ([], [i32] * (MAX_APPLY_COLS + 1), [i32, i32[:8]]):
         with pytest.raises(ValueError):
             gather_sorted(cols, i32)
     with pytest.raises(ValueError):  # one value per destination

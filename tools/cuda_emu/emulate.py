@@ -337,9 +337,13 @@ def main() -> int:
         n = dst2.numel()
         val = t(rng.integers(0, 2**32, n, dtype=np.uint32))
         # kernel 5 over column sets of 1, 2 and 5 regions of one flat
-        # array, and over an offset dst2 view
-        flat = t(rng.integers(0, 2**32, 5 * s, dtype=np.uint32))
-        for n_cols, d in [(1, dst2), (2, dst2), (5, dst2), (2, dst2[1:])]:
+        # array, and over an offset dst2 view; at one s also 17 (the probe
+        # of k = 241-256) and 20 (the cap, a whole slot at k = 256)
+        wide = (17, 20) if s == 4096 else ()
+        flat = t(rng.integers(0, 2**32, max((5,) + wide) * s,
+                              dtype=np.uint32))
+        for n_cols, d in [(1, dst2), (2, dst2), (5, dst2), (2, dst2[1:])] + [
+                (w, dst2) for w in wide]:
             cols = [flat[c * s : (c + 1) * s] for c in range(n_cols)]
             outs = [torch.full_like(d, -7) for _ in cols]
             assert lib.tsx_gather_sorted(P(cols), P(outs), n_cols, s,
@@ -348,13 +352,17 @@ def main() -> int:
             assert all(map(torch.equal, outs, want)), ("gather", s, n_live,
                                                        n_cols)
         # kernel 4 with one column, and with five regions of one flat
-        # array: random values, zeros, some zeros, wrapping adds, 0/1
-        flat = t(rng.integers(2**31, 2**32, 5 * s, dtype=np.uint32))
+        # array: random values, zeros, some zeros, wrapping adds, 0/1; at
+        # one s also 19 (the round of k = 241-256) and 20 (the cap)
+        wide = (19, 20) if s == 4096 else ()
+        flat = t(rng.integers(2**31, 2**32, max((5,) + wide) * s,
+                              dtype=np.uint32))
         vals = (val, torch.zeros_like(val),
                 val * t((rng.random(n) < 0.5).astype(np.int32)),
                 t(rng.integers(2**31, 2**32, n, dtype=np.uint32)),
                 t((rng.random(n) < 0.5).astype(np.int32)))
-        for n_cols in (1, 5):
+        vals = vals * 4  # 20 value columns, the five kinds in turn
+        for n_cols in (1, 5) + wide:
             got = flat.clone()
             cols = [got[c * s : (c + 1) * s] for c in range(n_cols)]
             assert lib.tsx_apply_sorted_unique(

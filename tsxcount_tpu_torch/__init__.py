@@ -5,7 +5,7 @@ The port of `tsxcount_tpu` (JAX/Pallas on a TPU), which stays the reference
 it is tested against.  This package imports neither JAX nor `tsxcount_tpu`.
 It covers the single-GPU surface of the JAX package: the sort backend for
 k <= 256 (from k = 113 through the lane-mix bijection) with the flat or the
-LSM count store, the quotient-table backend for k <= 127, canonical
+LSM count store, the quotient-table backend for k <= 256, canonical
 counting, homopolymer collapse, progress lines, checkpoints that load in
 either package, a device-memory preflight, the command line
 (`python -m tsxcount_tpu_torch count`) and the sharded counter over

@@ -50,6 +50,9 @@ def save_counter(counter, path: str | Path) -> None:
     if _is_sharded(counter):
         _save_sharded(counter, path)
         return
+    # the packer's partial batch and the pending merges first, so that the
+    # file's state, stats and batches_processed all include every read fed
+    counter.flush()
     meta = {
         "format": FORMAT_VERSION,
         "k": counter.spec.k,
@@ -75,7 +78,6 @@ def save_counter(counter, path: str | Path) -> None:
     if counter.backend == "table":
         ref = counter.table.state_to_reference(counter.state)
     else:
-        counter._flush_pending()
         counter._collapse_if_lsm()  # the LSM: everything in the top level
         ref = counter.store.state_to_reference(counter.state)
     _write(path, meta, ref, counter.hash_fn)

@@ -462,10 +462,17 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         for seq in reads:
             self._consume(self.packer.feed(seq))
 
-    def finish(self) -> None:
-        """Flush the final partial batch and check capacity."""
+    def flush(self) -> None:
+        """Count the packer's partial batch and fold every pending batch
+        histogram into the store (before a checkpoint; finish adds the
+        capacity check).  Counting goes on after it: the packer starts a
+        new batch."""
         self._consume(self.packer.finish())
         self._flush_pending()
+
+    def finish(self) -> None:
+        """flush, then check capacity."""
+        self.flush()
         self._check_capacity()
 
     def _collapse_if_lsm(self) -> None:

@@ -47,9 +47,19 @@ namespace tsx {
 namespace {
 
 constexpr int kApplyThreads = 256;
-constexpr int kMaxApplyCols = 16;  // k = 127 needs 12
+// A whole slot's columns: slot_cols = lanes + 4 is 20 at k = 256 (16 key
+// lanes, 3 count digits, the used flag).  A split round probes lanes + 1
+// columns (kernel 5: 17 at k = 241-256) and applies lanes + 3 (kernel 4,
+// the digit-2 column left out: 17-19 at k = 209-256), so every round is one
+// launch of each kernel at any k.  v[NC] and old[NC] stay in registers at
+// every width (nvcc 12.8, sm_90a, under __launch_bounds__(256)): kernel 5
+// takes 32 registers a thread at NC = 1-20, kernel 4 48 at NC = 16-17, 60
+// at 18, 58 at 19 and 62 at 20, with no stack frame or local memory in
+// either (chip_smoke.py phase 2 checks this on every build).
+constexpr int kMaxApplyCols = 20;
 
-// The columns of one apply launch, passed by value.
+// The columns of one apply launch, passed by value (320 bytes of kernel
+// parameters at 20 columns, inside the 4 KB limit).
 struct ApplyCols {
   uint32_t* col[kMaxApplyCols];
   const uint32_t* val[kMaxApplyCols];

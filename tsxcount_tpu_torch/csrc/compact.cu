@@ -27,9 +27,9 @@
 // (32 KB at 2^24 rows).
 //
 // Contract (ops/compact.py): flag int32 or uint8 (torch.bool) [n], a row
-// flagged where != 0; up to 16 columns of int32 or int64 [n] (a column
-// aligned for its vector load takes it, another one scalar loads, e.g. an
-// offset view); outputs [n] whose rows [0, sum(flag != 0)) are the flagged
+// flagged where != 0; up to kMaxCols (18) columns of int32 or int64 [n]
+// (a column aligned for its vector load takes it, another one scalar
+// loads, e.g. an offset view); outputs [n] whose rows [0, sum(flag != 0)) are the flagged
 // rows in order; the rest is left unwritten.
 
 #include "lookback.cuh"

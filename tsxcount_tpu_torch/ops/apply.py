@@ -23,7 +23,9 @@ import torch
 from tsxcount_tpu_torch import _build
 from tsxcount_tpu_torch.ops.lanes import i32, u32
 
-MAX_APPLY_COLS = 16  # kMaxCols of csrc/common.cuh; k=127 needs 12
+# kMaxApplyCols of csrc/apply.cu: a whole slot's columns at k = 256 (a round
+# probes lanes + 1 of them and applies lanes + 3)
+MAX_APPLY_COLS = 20
 
 
 def _live(col: torch.Tensor, dst2: torch.Tensor):
@@ -54,9 +56,9 @@ def gather_sorted(cols, dst2: torch.Tensor):
     """outs[c][e] = cols[c][dst2[e] >> 1] for odd dst2[e], else 0.
 
     cols: one int32 column region [S] (uint32 bit patterns), or a sequence
-    of 1..16 such regions of one length; dst2: int32 [W].  Returns (out
-    int32 [W], or a tuple of one out per column, and an overflow int32 0-d
-    zero).  A column set is that many calls of the TPU kernel in ONE
+    of 1..MAX_APPLY_COLS (20) such regions of one length; dst2: int32
+    [W].  Returns (out int32 [W], or a tuple of one out per column, and an
+    overflow int32 0-d zero).  A column set is that many calls of the TPU kernel in ONE
     launch, which reads dst2 once.  CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (no
     synchronisation); any other device raises.
@@ -98,10 +100,10 @@ def apply_sorted_unique(cols, dst2: torch.Tensor, vals
     """cols[c][dst2[e] >> 1] += vals[c][e] for odd dst2[e] and every c,
     modulo 2^32, IN PLACE.
 
-    cols: C <= 16 int32 column regions [S] of one slot array (uint32 bit
-    patterns), or one such tensor; vals: as many int32 [W] value columns
-    (or one tensor); dst2: int32 [W], shared by every column, live
-    destinations distinct.  Returns (cols itself, overflow int32 0-d zero).
+    cols: C <= MAX_APPLY_COLS (20) int32 column regions [S] of one slot
+    array (uint32 bit patterns), or one such tensor; vals: as many int32
+    [W] value columns (or one tensor); dst2: int32 [W], shared by every
+    column, live destinations distinct.  Returns (cols itself, overflow int32 0-d zero).
     One call is C calls of the TPU kernel, one per column, in one launch.
     The update is in place because the columns are regions of the table's
     whole slot array: the JAX package donates that array to the round, and
