@@ -150,22 +150,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _profiled(out_dir: str, device):
-    """torch.profiler over the count; on exit the Chrome trace goes to
-    out_dir/trace.json and the device's busy time to stderr."""
+    """torch.profiler over the count, every thread recorded where the
+    installed torch can (the producer's parse and copy spans on their own
+    thread); on exit the Chrome trace goes to out_dir/trace.json, and the
+    device's busy time and the port's spans (utils/profiling.py) to
+    stderr."""
     from pathlib import Path
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tsxcount_tpu_torch.utils.profiling import device_busy_us
+    from tsxcount_tpu_torch.utils.profiling import (
+        device_busy_us,
+        reset_spans,
+        span_totals,
+    )
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    try:
+        config = torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except TypeError:  # a torch without the option: the main thread only
+        config = None
 
     @contextlib.contextmanager
     def ctx():
-        with profile(activities=acts) as prof:
+        reset_spans()
+        with profile(activities=acts, experimental_config=config) as prof:
             t0 = time.perf_counter()
             yield
             if device.type == "cuda":
@@ -177,6 +190,9 @@ def _profiled(out_dir: str, device):
         busy = device_busy_us(prof) / 1e6 if device.type == "cuda" else 0.0
         print(f"profile: {out / 'trace.json'}, wall {wall:.4f} s, device "
               f"busy {busy:.4f} s", file=sys.stderr)
+        for name, (n, total, own) in sorted(span_totals().items()):
+            print(f"profile: span {name} count {n} total {total:.4f} s "
+                  f"self {own:.4f} s", file=sys.stderr)
 
     return ctx()
 

@@ -67,6 +67,7 @@ from tsxcount_tpu_torch.ops.mix import (
 )
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.utils.goldenfile import read_golden
+from tsxcount_tpu_torch.utils.profiling import span
 from tsxcount_tpu_torch.utils.sequence import kmers_to_strings, strings_to_kmers
 
 # the JAX package's reference mode strings -> backends
@@ -138,8 +139,10 @@ def table_insert(table: QuotientTable, state, uc: UniqueCounts):
     at the next power of two >= the rows left (at least 256); the plain
     tail once w * slot_cols <= 2^18 or from round 6 on.  One host read
     of the distinct count and one of each round's rows left."""
+    table.inserts += 1
     p = uc.keys.shape[0]
-    n = int(uc.n_unique)
+    with span("sync"):
+        n = int(uc.n_unique)
     width = p
     for w in (p // 4, p // 2):
         if 256 <= w and n <= w:
@@ -150,7 +153,8 @@ def table_insert(table: QuotientTable, state, uc: UniqueCounts):
             uc.keys[:width], uc.counts[:width], uc.valid[:width]))
     r = 1
     while True:
-        f = int(n_left)
+        with span("sync"):
+            f = int(n_left)
         if f == 0:
             return table.renorm(st)
         w = min(width, max(256, 1 << (f - 1).bit_length()))
@@ -345,6 +349,7 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
                 self.store.reset_schedule()
         else:
             self.state = self.table.init_state()
+            self.table.inserts = self.table.rounds = 0
         self._pending: list[UniqueCounts] = []
         # the batches' prefix-collision flags, ORed on the device
         self._collided: torch.Tensor | None = None
@@ -397,44 +402,48 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
     def _put(self, pb: PackedBatch) -> torch.Tensor:
         # words and validity intervals ride ONE buffer: one copy per batch,
         # made on the producer thread
-        return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
+        with span("put"):
+            return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
 
     def _dedupe(self, buf: torch.Tensor) -> UniqueCounts:
-        batch = self.batch
-        keys = extract_kmer_cols(buf[: batch.total_words], batch)
-        if self.canonical:  # before the hash, as in the JAX package
-            keys = canonicalize_cols(keys, self.spec)
-        if self.hash_first == "mix":
-            keys = self.key_map.apply_cols(keys)
-        elif self.hash_first == "gf2":  # the product takes stacked rows
-            keys = self.key_map.apply(torch.stack(keys, dim=-1))
-        elif self.mix_prefix:
-            keys = extend_cols(keys)
-        valid = intervals_to_valid(buf[batch.total_words :], batch)
-        uniform = bool((self.hash_first or self.mix_prefix)
-                       and not self._mix_full_sort)
-        uc = count_unique(keys, valid, self.store_spec,
-                          uniform_prefix=uniform)
-        if uc.collided is not None:  # kept on the device, read once a file
-            self._collided = (uc.collided if self._collided is None
-                              else self._collided | uc.collided)
-        return uc
+        with span("step"):
+            batch = self.batch
+            keys = extract_kmer_cols(buf[: batch.total_words], batch)
+            if self.canonical:  # before the hash, as in the JAX package
+                keys = canonicalize_cols(keys, self.spec)
+            if self.hash_first == "mix":
+                keys = self.key_map.apply_cols(keys)
+            elif self.hash_first == "gf2":  # the product takes stacked rows
+                keys = self.key_map.apply(torch.stack(keys, dim=-1))
+            elif self.mix_prefix:
+                keys = extend_cols(keys)
+            valid = intervals_to_valid(buf[batch.total_words :], batch)
+            uniform = bool((self.hash_first or self.mix_prefix)
+                           and not self._mix_full_sort)
+            uc = count_unique(keys, valid, self.store_spec,
+                              uniform_prefix=uniform)
+            if uc.collided is not None:  # on the device, read once a file
+                self._collided = (uc.collided if self._collided is None
+                                  else self._collided | uc.collided)
+            return uc
 
     def _flush_pending(self) -> None:
         """Fold the pending batch histograms into the store."""
         if not self._pending:
             return
         pend, self._pending = self._pending, []
-        self.state = self.store.merge_stacked(
-            self.state,
-            torch.stack([u.keys for u in pend]),
-            torch.stack([u.counts for u in pend]),
-            torch.stack([u.valid for u in pend]),
-        )
+        with span("fold"):
+            self.state = self.store.merge_stacked(
+                self.state,
+                torch.stack([u.keys for u in pend]),
+                torch.stack([u.counts for u in pend]),
+                torch.stack([u.valid for u in pend]),
+            )
 
     def _table_step(self, buf: torch.Tensor) -> None:
-        self.state = table_insert(self.table, self.state,
-                                  self._dedupe(buf))
+        uc = self._dedupe(buf)
+        with span("fold"):
+            self.state = table_insert(self.table, self.state, uc)
 
     def _consume_bufs(self, bufs: Iterable[torch.Tensor],
                       stats_fn=None) -> None:
@@ -482,7 +491,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
     def _check_capacity(self) -> None:
         # the one host synchronisation per file
         if self.backend == "table":
-            spilled = int(self.state.spilled)
+            with span("sync"):
+                spilled = int(self.state.spilled)
             if spilled:
                 raise TableFull(
                     f"{spilled} kmers unresolved after "
@@ -497,7 +507,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         if self._collided is not None:
             flags.append(self._collided)
         self._collided = None
-        flags = torch.stack(flags).cpu().tolist()
+        with span("sync"):
+            flags = torch.stack(flags).cpu().tolist()
         if any(flags[:n_over]):
             raise TableFull(
                 f"distinct kmers exceeded capacity 2^{self.l}; rerun with "
@@ -572,7 +583,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
     def distinct(self) -> int:
         self._flush_pending()
         self._collapse_if_lsm()
-        return int((self.state[-1] if self.lsm else self.state).n)
+        with span("sync"):
+            return int((self.state[-1] if self.lsm else self.state).n)
 
     @property
     def total_kmers(self) -> int:
@@ -661,6 +673,7 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         return res
 
     def stats(self) -> dict:
+        table = self.backend == "table"
         st = dataclasses.asdict(self.packer.stats)
         st.update(
             backend=self.backend,
@@ -673,8 +686,10 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
             total_kmers=self.total_kmers,
             batches=self.batches_processed,
             device_seconds=round(self.elapsed, 4),
+            table_inserts=self.table.inserts if table else 0,
+            table_rounds=self.table.rounds if table else 0,
         )
-        if self.backend == "table":
+        if table:
             st["fill_factor"] = self.table.fill_factor(self.state)
             st["spilled"] = int(self.state.spilled)
             # reprobe-depth histogram, trailing zeros trimmed

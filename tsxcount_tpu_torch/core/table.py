@@ -51,6 +51,7 @@ from tsxcount_tpu_torch.ops.apply import apply_sorted_unique, gather_sorted
 from tsxcount_tpu_torch.ops.compact import compact_flagged
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 from tsxcount_tpu_torch.ops.lanes import i32, u32
+from tsxcount_tpu_torch.utils.profiling import span
 
 DEAD = 1 << 30  # dst2 of inactive rows: even, past every doubled address
 REFERENCE_FIELDS = ("slots", "n", "spilled", "probe_hist")
@@ -89,6 +90,10 @@ class QuotientTable:
         # the reference's bound is 2^L - 1 reprobes
         self.max_reprobes = min(max_reprobes, self.slots - 1)
         self._low_mask = (1 << l_bits) - 1
+        # host counts (an owner's stats): batch histograms inserted by
+        # core/counter.py table_insert, and reprobe rounds run (split and
+        # residue rounds)
+        self.inserts = self.rounds = 0
         # flat doubled element destinations must fit int32
         if 2 * self.slots * self.slot_cols >= 2**31:
             raise ValueError(
@@ -189,6 +194,7 @@ class QuotientTable:
         cleared_c, counts_c, active_c), n_enter, n_left), the carry rows
         compacted so that the active ones are exactly the first n_left.
         """
+        self.rounds += 1
         s = self.slots
         lanes = self.spec.lanes
         cols = self.slot_cols
@@ -281,7 +287,11 @@ class QuotientTable:
         n, hist = state.n, state.probe_hist
         unresolved = active_f[:width2].clone()
         r = r_start
-        while r < self.max_reprobes and bool(unresolved.any()):
+        while r < self.max_reprobes:
+            with span("sync"):
+                if not bool(unresolved.any()):
+                    break
+            self.rounds += 1
             pos = (pos0 + _triangular(r)) % s
             slotkey0 = cleared[0] | r
             g_cols = [slots[c * s + pos] for c in probe_cols]

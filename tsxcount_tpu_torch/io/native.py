@@ -30,6 +30,7 @@ import numpy as np
 
 from tsxcount_tpu_torch.config import BatchSpec
 from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats, add_stats
+from tsxcount_tpu_torch.utils.profiling import span
 
 _REPO = Path(__file__).resolve().parent.parent.parent
 SOURCE = _REPO / "tsxcount_tpu" / "_native" / "fastxpack.cpp"
@@ -177,15 +178,16 @@ class _Handle:
         n_bases = ctypes.c_int64()
         while True:
             buf = np.empty(b.buf_words, dtype=np.uint32)
-            rc = lib.fxp_next_batch(
-                self._h,
-                buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-                b.total_words,
-                b.capacity_words,
-                b.max_intervals,
-                ctypes.byref(n_valid),
-                ctypes.byref(n_bases),
-            )
+            with span("parse"):  # the C++ parse and pack of one batch
+                rc = lib.fxp_next_batch(
+                    self._h,
+                    buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                    b.total_words,
+                    b.capacity_words,
+                    b.max_intervals,
+                    ctypes.byref(n_valid),
+                    ctypes.byref(n_bases),
+                )
             if rc < 0:
                 raise ValueError(
                     f"parse error: {lib.fxp_error(self._h).decode()}"

@@ -18,6 +18,8 @@ import queue
 import threading
 from typing import Callable, Iterable, Iterator
 
+from tsxcount_tpu_torch.utils.profiling import span
+
 _DONE = object()
 
 
@@ -81,5 +83,18 @@ def prefetch(
     depth: int = 2,
 ) -> Iterator:
     """Apply `transform` (e.g. a host-to-device copy) to each item on a background
-    thread, yielding results in order, at most `depth` ahead."""
-    return merged_iter([map(transform, items)], depth=depth)
+    thread, yielding results in order, at most `depth` ahead.  Each pull
+    is a `feed_wait` span: the consumer's wait for the producer."""
+    return _timed_pulls(merged_iter([map(transform, items)], depth=depth))
+
+
+def _timed_pulls(it: Iterator) -> Iterator:
+    try:
+        while True:
+            with span("feed_wait"):
+                item = next(it, _DONE)
+            if item is _DONE:
+                return
+            yield item
+    finally:
+        it.close()  # stops and joins the producer if closed early

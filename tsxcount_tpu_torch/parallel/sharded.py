@@ -87,6 +87,7 @@ from tsxcount_tpu_torch.ops.mix import LaneMixBijection
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.parallel.mesh import init_shard_group
 from tsxcount_tpu_torch.utils.goldenfile import read_golden
+from tsxcount_tpu_torch.utils.profiling import span
 from tsxcount_tpu_torch.utils.sequence import (
     kmers_to_strings,
     strings_to_kmers,
@@ -255,6 +256,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         # last finish, summed over the ranks there
         self._health = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._spill_recovered = 0
+        if self.backend == "table":
+            self.table.inserts = self.table.rounds = 0
         self.packer = self._new_packer()
         self._pending: list[PackedBatch] = []
         self._pending_recv: list[tuple] = []
@@ -298,14 +301,16 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             # of the state)
             t = t.clone()
             dist.all_reduce(t)
-        return t.tolist()
+        with span("sync"):
+            return t.tolist()
 
     def _max(self, value: int) -> int:
         if not self.group.joined:
             return value
         t = torch.tensor([value], dtype=torch.int64, device=self.device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return int(t.item())
+        with span("sync"):
+            return int(t.item())
 
     def _exchange(self, t: torch.Tensor) -> torch.Tensor:
         """Block o of t's leading axis to rank o; block j of the result
@@ -353,7 +358,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
 
     def _put(self, pb: PackedBatch) -> torch.Tensor:
         # words and validity intervals ride ONE buffer: one copy a batch
-        return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
+        with span("put"):
+            return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
 
     def _empty_buf(self) -> torch.Tensor:
         """The device buffer of an empty batch, which a rank short of
@@ -418,7 +424,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
     def _step_buf(self, buf: torch.Tensor) -> None:
         """Route one batch (every rank steps together) and fold the
         received runs every merge_every steps."""
-        self._pending_recv.append(self._route(buf))
+        with span("step"):
+            self._pending_recv.append(self._route(buf))
         self.batches_processed += self.n_shards
         self._maybe_progress(getattr(self, "_live_stats_fn", None))
         if len(self._pending_recv) >= self.merge_every:
@@ -431,21 +438,22 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         if not pend or (len(pend) < self.merge_every and not force):
             return
         self._pending_recv = []
-        keys = torch.cat([p[0] for p in pend])      # [R*n, cap, lanes]
-        counts = torch.cat([p[1] for p in pend])    # [R*n, cap]
-        lens = torch.cat([p[2] for p in pend])      # [R*n]
-        valid = (torch.arange(self.route_cap, device=self.device)
-                 < lens[:, None])
-        if self.backend == "sort":
-            # the flat store, or the LSM's L0 and its cascade
-            self.state = self.store.merge_stacked(self.state, keys, counts,
-                                                  valid)
-            return
-        # the table: re-dedupe the runs with their counts as weights
-        uc = count_unique(keys.reshape(-1, self.spec.lanes),
-                          valid.reshape(-1), self.spec,
-                          weights=counts.reshape(-1))
-        self.state = table_insert(self.table, self.state, uc)
+        with span("fold"):
+            keys = torch.cat([p[0] for p in pend])      # [R*n, cap, lanes]
+            counts = torch.cat([p[1] for p in pend])    # [R*n, cap]
+            lens = torch.cat([p[2] for p in pend])      # [R*n]
+            valid = (torch.arange(self.route_cap, device=self.device)
+                     < lens[:, None])
+            if self.backend == "sort":
+                # the flat store, or the LSM's L0 and its cascade
+                self.state = self.store.merge_stacked(self.state, keys,
+                                                      counts, valid)
+                return
+            # the table: re-dedupe the runs with their counts as weights
+            uc = count_unique(keys.reshape(-1, self.spec.lanes),
+                              valid.reshape(-1), self.spec,
+                              weights=counts.reshape(-1))
+            self.state = table_insert(self.table, self.state, uc)
 
     def _collapse_lsm(self) -> None:
         """Absorb every LSM level into the top one (reads see one store);
@@ -459,22 +467,25 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         re-dedupe the received rows with their counts as weights (tails of
         different batches are sorted each, not together) and fold them
         into the read state; then clear the carry.  Collective."""
-        ck, cc, cl = self._carry
-        rk, rc, rl = map(self._exchange, (ck, cc, cl))
-        valid = torch.arange(ck.shape[1], device=self.device) < rl[:, None]
-        lanes = self.spec.lanes
-        uc = count_unique(rk.reshape(-1, lanes), valid.reshape(-1),
-                          self.spec, weights=rc.reshape(-1))
-        if self.backend == "table":
-            self.state = table_insert(self.table, self.state, uc)
-        elif self.lsm:  # into the top level, as the JAX package folds it
-            self.state[-1] = self.store.levels[-1].merge_stacked(
-                self.state[-1], uc.keys[None], uc.counts[None],
-                uc.valid[None])
-        else:
-            self.state = self.store.merge_stacked(
-                self.state, uc.keys[None], uc.counts[None], uc.valid[None])
-        self._carry = self._init_carry()
+        with span("fold"):
+            ck, cc, cl = self._carry
+            rk, rc, rl = map(self._exchange, (ck, cc, cl))
+            valid = (torch.arange(ck.shape[1], device=self.device)
+                     < rl[:, None])
+            lanes = self.spec.lanes
+            uc = count_unique(rk.reshape(-1, lanes), valid.reshape(-1),
+                              self.spec, weights=rc.reshape(-1))
+            if self.backend == "table":
+                self.state = table_insert(self.table, self.state, uc)
+            elif self.lsm:  # into the top level, as the JAX package does
+                self.state[-1] = self.store.levels[-1].merge_stacked(
+                    self.state[-1], uc.keys[None], uc.counts[None],
+                    uc.valid[None])
+            else:
+                self.state = self.store.merge_stacked(
+                    self.state, uc.keys[None], uc.counts[None],
+                    uc.valid[None])
+            self._carry = self._init_carry()
 
     # --- ingestion ---
 
@@ -669,6 +680,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         return res
 
     def stats(self) -> dict:
+        table = self.backend == "table"
         st = dataclasses.asdict(self._global_stats())
         self._prepare()
         ns = torch.cat(self._gather_rows(
@@ -689,6 +701,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             shard_imbalance=round(float(ns.max()) / max(1.0, float(ns.mean())),
                                   4),
             spill_recovered=self._spill_recovered,
+            table_inserts=self.table.inserts if table else 0,
+            table_rounds=self.table.rounds if table else 0,
         )
         return st
 
