@@ -287,7 +287,11 @@ def test_nvcc_command_targets_sm90a_in_ignored_build_dir():
 
 
 def test_native_parser_built_from_source_into_ignored_dir():
-    assert native.SOURCE == REPO / "tsxcount_tpu" / "_native" / "fastxpack.cpp"
+    # the port's own parser source (the JAX package's is the tests'
+    # reference for it, never built by the port)
+    assert native.SOURCE == (REPO / "tsxcount_tpu_torch" / "csrc"
+                             / "fastxpack.cpp")
+    assert native.SOURCE.is_file()
     out = native.library_path()
     assert out.parent == native.BUILD_DIR and _gitignored(out)
     cmd = native.compile_command(out)

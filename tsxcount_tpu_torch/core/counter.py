@@ -354,6 +354,9 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         # the batches' prefix-collision flags, ORed on the device
         self._collided: torch.Tensor | None = None
         self.packer = self._new_packer()
+        # reads that took the native parser's one-pass path (a host count,
+        # not a PackStats field: checkpoints do not carry it)
+        self.parse_fast_reads = 0
         self.batches_processed = 0
         self.elapsed = 0.0
         self._progress_t0 = None
@@ -563,6 +566,7 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
                 stats_fn=reader.live_stats,
             )
             self.packer.stats = add_stats(self.packer.stats, reader.stats)
+            self.parse_fast_reads += reader.fast_reads
         else:
             packer = self.packer
 
@@ -675,6 +679,8 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
     def stats(self) -> dict:
         table = self.backend == "table"
         st = dataclasses.asdict(self.packer.stats)
+        st = {"reads": st["reads"], "parse_fast_reads": self.parse_fast_reads,
+              **st}
         st.update(
             backend=self.backend,
             k=self.spec.k,

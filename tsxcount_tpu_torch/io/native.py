@@ -1,9 +1,10 @@
 """ctypes bindings for the native C++ FASTQ parser/packer.
 
-The parser's source is the JAX package's `tsxcount_tpu/_native/fastxpack.cpp`,
-read by path: this module never imports that package, never loads the
-library shipped beside the source, and never writes into its directory.  It
-compiles the source with g++ into this package's build directory
+The parser's source is this package's `csrc/fastxpack.cpp` (host C++).  Its
+output is byte-identical to the JAX package's `_native/fastxpack.cpp`,
+which the tests hold it to; `fast_reads` counts the reads it packed on its
+one-pass path.  This module compiles the source with g++ into this
+package's build directory
 (`tsxcount_tpu_torch/build/`, listed in .gitignore), under a file name keyed
 by a hash of the source and the compile command, so an edited source or
 flag set builds anew and concurrent processes never load a half-written
@@ -32,9 +33,9 @@ from tsxcount_tpu_torch.config import BatchSpec
 from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats, add_stats
 from tsxcount_tpu_torch.utils.profiling import span
 
-_REPO = Path(__file__).resolve().parent.parent.parent
-SOURCE = _REPO / "tsxcount_tpu" / "_native" / "fastxpack.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+_PACKAGE = Path(__file__).resolve().parent.parent
+SOURCE = _PACKAGE / "csrc" / "fastxpack.cpp"
+BUILD_DIR = _PACKAGE / "build"
 
 _lock = threading.Lock()
 _lib = None
@@ -101,6 +102,8 @@ def _declare(lib) -> None:
     ]
     lib.fxp_packed_words.restype = ctypes.c_int64
     lib.fxp_packed_words.argtypes = [ctypes.c_void_p]
+    lib.fxp_fast_reads.restype = ctypes.c_int64
+    lib.fxp_fast_reads.argtypes = [ctypes.c_void_p]
     lib.fxp_error.restype = ctypes.c_char_p
     lib.fxp_error.argtypes = [ctypes.c_void_p]
     lib.fxp_close.restype = None
@@ -218,6 +221,9 @@ class _Handle:
             packed_words=int(self._lib.fxp_packed_words(self._h)),
         )
 
+    def fast_reads(self) -> int:
+        return int(self._lib.fxp_fast_reads(self._h))
+
     def close(self):
         if self._h:
             self._lib.fxp_close(self._h)
@@ -234,8 +240,10 @@ class NativeFileReader:
     only the records that start in that byte range of an uncompressed
     file (one rank's share, parallel/distributed.py).  collapse: splice
     homopolymer runs as io/packer.py collapse_homopolymers does (the owed
-    counts go to stats.hp_bonus).  Raises RuntimeError if the parser
-    cannot be built.
+    counts go to stats.hp_bonus).  After the iteration, fast_reads is the
+    number of reads that took the parser's one-pass path (a host count,
+    kept out of PackStats and so out of checkpoints).  Raises RuntimeError
+    if the parser cannot be built.
     """
 
     def __init__(self, path: str | Path, batch: BatchSpec,
@@ -251,6 +259,7 @@ class NativeFileReader:
                              f"uncompressed input ({path} is gzip)")
         self.batch = batch
         self.stats = PackStats()
+        self.fast_reads = 0
         # live_stats (the consumer's thread) must not read a handle that
         # _finalize_stats (the thread that drains the iterator) has closed
         self._lock = threading.Lock()
@@ -300,6 +309,7 @@ class NativeFileReader:
             total = PackStats()
             for h in self._handles:
                 total = add_stats(total, h.stats())
+                self.fast_reads += h.fast_reads()
                 h.close()
             total.batches = self.stats.batches
             self.stats = total

@@ -127,5 +127,6 @@ def count_file_distributed(counter, path: str | Path, stride: int = 64,
     counter._stream_rounds = rounds
     if reader is not None:
         counter.packer.stats = add_stats(counter.packer.stats, reader.stats)
+        counter.parse_fast_reads += reader.fast_reads
     counter.finish()
     return mode

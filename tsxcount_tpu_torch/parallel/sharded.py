@@ -259,6 +259,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         if self.backend == "table":
             self.table.inserts = self.table.rounds = 0
         self.packer = self._new_packer()
+        # this rank's reads that took the native parser's one-pass path
+        self.parse_fast_reads = 0
         self._pending: list[PackedBatch] = []
         self._pending_recv: list[tuple] = []
         self.batches_processed = 0
@@ -682,6 +684,8 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
     def stats(self) -> dict:
         table = self.backend == "table"
         st = dataclasses.asdict(self._global_stats())
+        st = {"reads": st["reads"], "parse_fast_reads": self.parse_fast_reads,
+              **st}
         self._prepare()
         ns = torch.cat(self._gather_rows(
             self._read_state.n.reshape(1))).cpu().numpy()
