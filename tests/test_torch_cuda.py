@@ -667,3 +667,54 @@ def test_gf2_routing_one_shard_on_card_matches_cpu(dev, backend):
         want = s.to_dict()
         got.append((want, s.get_counts(list(want)[:500] + ["A" * 14])))
     assert got[0] == got[1] and len(got[0][0]) > 1000
+
+
+@pytest.mark.parametrize("kernel", ["lane_mix", "merge_dedupe_sorted"])
+def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
+                                                             kernel):
+    """One lane-mix launch at 2^24 positions of 8 lanes, or one kernel-3
+    launch at 8 key words, under a profiler: the launch table holds its
+    shape, and the benchmark's reader gives a share in (0, 100] % from the
+    trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from portbench import run
+    from portbench.trace import reduce_trace
+    from tsxcount_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "_SHAPES", {})
+    g = torch.Generator(device=dev).manual_seed(127)
+    if kernel == "lane_mix":
+        spec = KmerSpec(127)
+        mix = LaneMixBijection(spec)
+        cols = [torch.randint(-2**31, 2**31, (1 << 24,), dtype=torch.int32,
+                              device=dev, generator=g)
+                for _ in range(spec.lanes)]
+        cols[-1] &= spec.top_lane_mask
+        call = lambda: lane_mix(cols, mix)
+        shape = dict(positions=1 << 24, lanes=8, input_bytes=8 << 26)
+        metric = "kernels.lane_mix.roofline_pct"
+    else:
+        def run_of(rows, step):  # distinct first words: ascending keys
+            first = torch.arange(rows, dtype=torch.int32, device=dev) * step
+            rest = [torch.randint(-2**31, 2**31, (rows,), dtype=torch.int32,
+                                  device=dev, generator=g) for _ in range(7)]
+            return (first, *rest, torch.ones(rows, dtype=torch.int64,
+                                             device=dev))
+        a, b = run_of(1 << 24, 2), run_of(1 << 23, 3)
+        call = lambda: merge_dedupe_sorted(a, b, 8, INV_MIN)
+        shape = dict(m=1 << 24, n=1 << 23, n_keys=8)
+        metric = "kernels.merge_dedupe.roofline_pct"
+    call()  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("portbench.window"):
+            call()
+            torch.cuda.synchronize()
+    assert _build.launch_shapes() == [(kernel, shape, 1)]
+    rec = reduce_trace(prof.profiler.kineto_results.events(),
+                       torch.autograd.DeviceType.CUDA)
+    rec["jobs"] = 1
+    share = run.load_metric(metric).read(rec)
+    assert share is not None and 0 < share <= 100, share

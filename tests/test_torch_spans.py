@@ -96,15 +96,21 @@ def test_a_span_on_another_thread_reaches_the_table_not_the_trace():
 
 
 def test_the_table_shares_the_traces_clock():
+    """The span's trace event lies inside a bracket of `time.time_ns()`
+    stamps taken just before and after the span, and its duration equals
+    the table's within the bracket's slack (the table's interval lies
+    inside the event's): one clock, however loaded the host."""
     reset_spans()
     with _profiler() as prof:
-        t0 = time.time_ns()
+        before = time.time_ns()
         with span("put"):
             time.sleep(0.005)
+        after = time.time_ns()
     (ev,) = _tsx_events(prof)
-    total_ns = span_totals()["put"][1] * 1e9
-    assert abs(ev.start_ns() - t0) < 1e6
-    assert abs(ev.duration_ns() - total_ns) < 1e6
+    total_ns = round(span_totals()["put"][1] * 1e9)
+    start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+    assert before <= start < end <= after
+    assert 0 <= ev.duration_ns() - total_ns <= (after - before) - total_ns
 
 
 def test_a_span_exits_cleanly_on_an_exception():

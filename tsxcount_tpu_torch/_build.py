@@ -16,7 +16,11 @@ ints), sizes as `c_int64`.
 
 Launch counts: each kernel wrapper adds one to its entry in `LAUNCHES` where
 it launches its kernel and nowhere else, so a run can show that its main
-path went through the kernels.  The counts are per process.
+path went through the kernels.  The counts are per process.  While a torch
+profiler runs (the process-wide flag that `utils/profiling.span` reads),
+the wrapper's launch is also kept by its shape, the sizes the host holds
+at the launch (rows, columns, key words), in a second per-process table,
+`launch_shapes()`: the bytes a traced kernel moved, for its roofline share.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -38,6 +43,10 @@ MAX_COLS = 18  # kMaxCols of csrc/common.cuh: columns of one kernel call
 
 LAUNCHES = {"compact_flagged": 0, "merge_sorted": 0, "merge_dedupe_sorted": 0,
             "apply_sorted_unique": 0, "gather_sorted": 0, "lane_mix": 0}
+
+# (kernel, sorted shape items) -> launches while a profiler ran
+_SHAPES: dict[tuple[str, tuple], int] = {}
+_shapes_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib = None
@@ -130,8 +139,17 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, **shape) -> None:
+    """Count one launch of kernel `name`; while a torch profiler runs,
+    also keep it under its `shape` (see the module docstring), whose
+    values are ints or zero-argument callables that give one, called only
+    then."""
     LAUNCHES[name] += 1
+    if _autograd_profiler._is_profiler_enabled:
+        key = (name, tuple(sorted((k, v() if callable(v) else v)
+                                  for k, v in shape.items())))
+        with _shapes_lock:
+            _SHAPES[key] = _SHAPES.get(key, 0) + 1
 
 
 def reset_launch_counts() -> None:
@@ -141,6 +159,32 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launch_shapes() -> list[tuple[str, dict[str, int], int]]:
+    """[(kernel, shape, launches)] of the launches counted while a torch
+    profiler ran, since the last `reset_launch_shapes()`."""
+    with _shapes_lock:
+        return [(name, dict(shape), n)
+                for (name, shape), n in _SHAPES.items()]
+
+
+def reset_launch_shapes() -> None:
+    with _shapes_lock:
+        _SHAPES.clear()
+
+
+def distinct_bytes(tensors) -> int:
+    """Bytes of the union of contiguous tensors' memory: columns that are
+    overlapping views of one buffer count each byte once."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in tensors)
+    total = end = 0
+    for s, e in spans:
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
 
 
 def stream() -> int:

@@ -80,7 +80,7 @@ def gather_sorted(cols, dst2: torch.Tensor):
         _build.ptr_array(cols_t), _build.ptr_array(outs), len(cols_t),
         cols_t[0].shape[0], dst2.data_ptr(), dst2.shape[0], _build.stream())
     _build.check(rc, name)
-    _build.count_launch(name)
+    _build.count_launch(name, elements=dst2.shape[0], cols=len(cols_t))
     return (outs[0] if single else outs), over
 
 
@@ -131,5 +131,5 @@ def apply_sorted_unique(cols, dst2: torch.Tensor, vals
         _build.ptr_array(cols_t), _build.ptr_array(vals_t), len(cols_t),
         cols_t[0].shape[0], dst2.data_ptr(), dst2.shape[0], _build.stream())
     _build.check(rc, name)
-    _build.count_launch(name)
+    _build.count_launch(name, elements=dst2.shape[0], cols=len(cols_t))
     return cols, over

@@ -57,5 +57,5 @@ def compact_flagged(flag: torch.Tensor, cols) -> tuple:
         scratch.data_ptr(), _build.stream(),
     )
     _build.check(rc, "compact_flagged")
-    _build.count_launch("compact_flagged")
+    _build.count_launch("compact_flagged", rows=n, cols=len(cols))
     return out

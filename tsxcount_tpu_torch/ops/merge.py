@@ -77,5 +77,6 @@ def merge_sorted(a_cols, b_cols, n_keys: int = 1) -> tuple:
         n_keys, m, n, scratch.data_ptr(), _build.stream(),
     )
     _build.check(rc, "merge_sorted")
-    _build.count_launch("merge_sorted")
+    _build.count_launch("merge_sorted", m=m, n=n, n_keys=n_keys,
+                        payload_cols=len(a_cols) - n_keys)
     return out

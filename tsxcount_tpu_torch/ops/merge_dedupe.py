@@ -85,5 +85,5 @@ def merge_dedupe_sorted(a_cols, b_cols, n_keys: int, inv_min: int):
         scratch.data_ptr(), _build.stream(),
     )
     _build.check(rc, name)
-    _build.count_launch(name)
+    _build.count_launch(name, m=m, n=n, n_keys=n_keys)
     return out, stats[0], stats[1]

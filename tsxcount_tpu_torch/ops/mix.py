@@ -44,6 +44,7 @@ import torch
 from tsxcount_tpu_torch import _build
 from tsxcount_tpu_torch.config import WORD_BITS, KmerSpec
 from tsxcount_tpu_torch.ops.lanes import MASK32, i32, u32
+from tsxcount_tpu_torch.utils.profiling import span
 
 MIX_LANES = 2  # extended key = raw lanes + (mix_lo, mix_hi)
 
@@ -324,7 +325,8 @@ def lane_mix(cols, mix: LaneMixBijection, inverse: bool = False
              ) -> list[torch.Tensor]:
     """The lane mix of `mix.spec.lanes` equal-length int32 columns (lsb
     lane first).  CPU tensors take the plain version; CUDA tensors launch
-    the kernel on the current stream (no synchronisation)."""
+    the kernel on the current stream (no synchronisation).  Either is the
+    span `mix`, forward (the routing step) and inverse (the export)."""
     cols = tuple(cols)
     spec = mix.spec
     if len(cols) != spec.lanes:
@@ -332,17 +334,21 @@ def lane_mix(cols, mix: LaneMixBijection, inverse: bool = False
                          f"lanes")
     n = cols[0].shape[0]
     dev = _build.check_columns("lane_mix", cols, (torch.int32,), n)
-    if dev.type == "cpu":
-        return lane_mix_plain(cols, mix, inverse)
-    _build.require_cuda("lane_mix", dev)
-    out = [torch.empty_like(c) for c in cols]
-    if n == 0:
+    with span("mix"):
+        if dev.type == "cpu":
+            return lane_mix_plain(cols, mix, inverse)
+        _build.require_cuda("lane_mix", dev)
+        out = [torch.empty_like(c) for c in cols]
+        if n == 0:
+            return out
+        rc = _build.kernels().tsx_lane_mix(
+            _build.ptr_array(cols), _build.ptr_array(out), spec.lanes, n,
+            int(inverse), spec.top_lane_mask, mix._odd1, mix._odd2,
+            mix._inv1, mix._inv2, mix._shift, mix._unshift_steps,
+            _build.stream(),
+        )
+        _build.check(rc, "lane_mix")
+        # the routing step's columns are overlapping views of one stream
+        _build.count_launch("lane_mix", positions=n, lanes=spec.lanes,
+                            input_bytes=lambda: _build.distinct_bytes(cols))
         return out
-    rc = _build.kernels().tsx_lane_mix(
-        _build.ptr_array(cols), _build.ptr_array(out), spec.lanes, n,
-        int(inverse), spec.top_lane_mask, mix._odd1, mix._odd2, mix._inv1,
-        mix._inv2, mix._shift, mix._unshift_steps, _build.stream(),
-    )
-    _build.check(rc, "lane_mix")
-    _build.count_launch("lane_mix")
-    return out

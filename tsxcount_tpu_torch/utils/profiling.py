@@ -10,7 +10,8 @@ timeline gets no copy of it) and adds its count, total time and self time
 process-wide table, `span_totals()`.  The table is what carries spans of
 threads that the profiler does not record (by default it records only the
 thread that started it).  Its times are `time.time_ns()` stamps, the Unix
-epoch nanoseconds that kineto stamps host events with.
+epoch nanoseconds that kineto stamps host events with.  One span nests in
+another leaf: the lane mix (`mix`) inside a batch's step.
 """
 
 from __future__ import annotations

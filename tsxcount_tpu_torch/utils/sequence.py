@@ -11,6 +11,8 @@ nondeterminism this framework only emulates behind an explicit
 
 from __future__ import annotations
 
+import codecs
+
 import numpy as np
 
 from tsxcount_tpu_torch.config import BASES_PER_WORD, KmerSpec
@@ -22,6 +24,12 @@ for _b, _c in zip(b"ACGT", range(4)):
     _CODE_LUT[ord(chr(_b).lower())] = _c
 
 _BASE_LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
+# byte -> the letters of its 4 bases (base j at bits [2j, 2j+1]) as one
+# little-endian uint32
+_BYTE_LETTERS = np.ascontiguousarray(
+    _BASE_LUT[(np.arange(256)[:, None] >> 2 * np.arange(4)) & 3]
+).view("<u4").ravel()
+_DECODE_ROWS = 1 << 16  # rows a block of kmers_to_strings
 
 
 def encode_bases(seq: str | bytes) -> tuple[np.ndarray, np.ndarray]:
@@ -100,13 +108,17 @@ def kmer_to_string(lanes: np.ndarray, spec: KmerSpec) -> str:
 
 
 def kmers_to_strings(keys: np.ndarray, spec: KmerSpec) -> list[str]:
-    """Vectorized batch decode of (N, lanes) uint32 keys -> ACGT strings."""
-    keys = np.asarray(keys, dtype=np.uint32)
-    n = keys.shape[0]
-    if n == 0:
-        return []
-    shifts = (2 * np.arange(BASES_PER_WORD, dtype=np.uint32))[None, None, :]
-    codes = ((keys[:, :, None] >> shifts) & 3).reshape(n, -1)[:, : spec.k]
-    chars = _BASE_LUT[codes.astype(np.uint8)]
-    blob = chars.tobytes().decode("ascii")
-    return [blob[i * spec.k : (i + 1) * spec.k] for i in range(n)]
+    """Vectorized batch decode of (N, lanes) uint32 keys -> ACGT strings.
+
+    One table lookup a key byte gives the letters of its 4 bases, so a row
+    of lanes words decodes to lanes x 16 letters, of which the first k are
+    the k-mer.  Rows go in blocks of _DECODE_ROWS: no intermediate grows
+    with N."""
+    keys = np.asarray(keys, dtype="<u4")
+    k, width = spec.k, keys.shape[-1] * BASES_PER_WORD
+    out: list[str] = []
+    for off in range(0, keys.shape[0], _DECODE_ROWS):
+        block = np.ascontiguousarray(keys[off : off + _DECODE_ROWS])
+        text, _ = codecs.ascii_decode(_BYTE_LETTERS[block.view(np.uint8)])
+        out.extend([text[i : i + k] for i in range(0, len(text), width)])
+    return out
