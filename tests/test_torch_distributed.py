@@ -419,6 +419,16 @@ def test_spill_recovered_exactly(world):
             out["spill/recovered"])
 
 
+def test_no_rank_takes_the_one_shard_hand_off(world):
+    """At several ranks every step takes the padded route and the
+    exchange: stats() route_direct_batches stays 0 on every rank."""
+    _, ranks, _ = world
+    for out in ranks:
+        for name in (*SCENARIOS, "spill", "unequal", "range", "collision"):
+            st = json.loads(str(out[f"{name}/stats"]))
+            assert st["batches"] > 0 and st["route_direct_batches"] == 0
+
+
 def test_spill_past_the_carry_raises_on_every_rank(world):
     _, ranks, _ = world
     for out in ranks:

@@ -265,6 +265,24 @@ def test_one_shard_count_file_modes(one, name, mode):
     assert as_dict(out, name) == naive(spec["reads"])
 
 
+@pytest.mark.parametrize("name", ["sort", "table", "canonical", "lsm",
+                                  "gf2_sort", "gf2_table", "gf2_lsm",
+                                  "identity", "range", "collision"])
+def test_one_shard_steps_take_the_hand_off(one, name):
+    """At one shard with no spill carry every step takes the one-shard
+    hand-off (the collision scenario's recount with the full sort too):
+    stats() route_direct_batches equals batches."""
+    out, _, _ = one
+    st = json.loads(str(out[f"{name}/stats"]))
+    assert st["route_direct_batches"] == st["batches"] > 0
+
+
+def test_one_shard_spill_carry_takes_the_padded_route(one):
+    out, _, _ = one
+    st = json.loads(str(out["spill/stats"]))
+    assert st["batches"] > 0 and st["route_direct_batches"] == 0
+
+
 def test_one_shard_real_prefix_collision_recounts(one):
     out, spec, _ = one
     assert bool(out["collision/full_sort"])

@@ -21,9 +21,9 @@ same level states after every flush.  Reads either sum the levels
 
 The state is a list of CountStore states, one a level; the methods carry
 CountStore's names so that the counter's sort backend calls one interface.
-merge_stacked and collapse update that list in place (and return it), so
-a level's old tensors go as soon as its new state exists: a cascade never
-holds two copies of the levels on the device.
+merge_stacked, merge_runs and collapse update that list in place (and
+return it), so a level's old tensors go as soon as its new state exists:
+a cascade never holds two copies of the levels on the device.
 """
 
 from __future__ import annotations
@@ -94,13 +94,19 @@ class LSMStore:
     def merge_stacked(self, states: list[StoreState], ukeys: torch.Tensor,
                       ucounts: torch.Tensor, uvalid: torch.Tensor
                       ) -> list[StoreState]:
-        """Fold R batch histograms into L0, then cascade full levels
-        upward: level i absorbs into level i+1 every fill * growth^i
-        flushes, checked bottom-up (carry-style), so level i+1 takes at
-        most `growth` images of level i between its own cascades.  No
-        host synchronisation.  Updates `states` in place."""
-        states[0] = self.levels[0].merge_stacked(states[0], ukeys, ucounts,
-                                                 uvalid)
+        """Fold R stacked batch histograms into L0 (CountStore.pack_runs),
+        then cascade as merge_runs does."""
+        return self.merge_runs(
+            states, self.levels[0].pack_runs(ukeys, ucounts, uvalid))
+
+    def merge_runs(self, states: list[StoreState], runs: list[tuple]
+                   ) -> list[StoreState]:
+        """Fold R runs (CountStore.merge_runs) into L0, then cascade full
+        levels upward: level i absorbs into level i+1 every fill *
+        growth^i flushes, checked bottom-up (carry-style), so level i+1
+        takes at most `growth` images of level i between its own
+        cascades.  No host synchronisation.  Updates `states` in place."""
+        states[0] = self.levels[0].merge_runs(states[0], runs)
         self._flushes += 1
         period = self.fill
         for i in range(len(self.levels) - 1):

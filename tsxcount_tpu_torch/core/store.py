@@ -32,6 +32,7 @@ from tsxcount_tpu_torch.config import (
 )
 from tsxcount_tpu_torch.ops.count import (
     flag_ops,
+    histogram_run,
     invalid_constants,
     pack_flag_key,
     unpack_flag_key,
@@ -61,22 +62,25 @@ class CountStore:
         self.n_ops = flag_ops(spec)
         self.inv_consts = invalid_constants(spec)
         self.inv_min = self.inv_consts[0]
+        # on the device once: a masked fold writes them with no host copy
+        self._inv_dev = torch.tensor(self.inv_consts, dtype=torch.int32,
+                                     device=self.device)
 
     def _tail_masked(self, keys, counts, n) -> tuple:
         """Rows >= n of (keys [n_ops, cap], counts [cap]) set to the invalid
-        constant and 0."""
+        constant and 0.  Each masked column is written straight into its
+        row of the new [n_ops, cap] tensor (no stacking copy)."""
         used = torch.arange(self.capacity, device=counts.device) < n
-        keys = torch.stack([
-            torch.where(used, col, const)
-            for col, const in zip(keys, self.inv_consts)
-        ])
-        return keys, torch.where(used, counts, 0)
+        out = counts.new_empty((self.n_ops, self.capacity),
+                               dtype=torch.int32)
+        for row, col, const in zip(out, keys, self._inv_dev):
+            torch.where(used, col, const, out=row)
+        return out, torch.where(used, counts, 0)
 
     def init_state(self) -> StoreState:
         cap, dev = self.capacity, self.device
-        keys = torch.tensor(self.inv_consts, dtype=torch.int32, device=dev)
         return StoreState(
-            keys=keys[:, None].expand(self.n_ops, cap).contiguous(),
+            keys=self._inv_dev[:, None].expand(self.n_ops, cap).contiguous(),
             counts=torch.zeros(cap, dtype=torch.int64, device=dev),
             n=torch.zeros((), dtype=torch.int64, device=dev),
             overflowed=torch.zeros((), dtype=torch.bool, device=dev),
@@ -93,24 +97,30 @@ class CountStore:
                       ucounts: torch.Tensor, uvalid: torch.Tensor
                       ) -> StoreState:
         """Fold R batch histograms (count_unique outputs stacked:
-        ukeys [R, P, lanes], ucounts [R, P], uvalid [R, P]) into the store.
+        ukeys [R, P, lanes], ucounts [R, P], uvalid [R, P]) into the
+        store: pack_runs, then merge_runs.  No host synchronisation."""
+        return self.merge_runs(state, self.pack_runs(ukeys, ucounts, uvalid))
 
-        Each histogram's valid prefix is a sorted run; invalid rows become
-        the invalid constant with count 0 so every run stays ascending.  A
-        balanced tree of stable merges (kernel 2) joins the R runs, then
-        one merge-dedupe (kernel 3) folds them into the store, summing the
-        counts of equal keys.  No host synchronisation.
-        """
+    def pack_runs(self, ukeys: torch.Tensor, ucounts: torch.Tensor,
+                  uvalid: torch.Tensor) -> list[tuple]:
+        """R stacked row histograms as R runs of merge_runs: each one's
+        valid prefix is a sorted run; its invalid rows become the invalid
+        constant with count 0 (ops/count.py histogram_run)."""
         spec = self.spec
-        runs = []
-        for i in range(ukeys.shape[0]):
-            ops = pack_flag_key(ukeys[i], ~uvalid[i], spec)
-            ops = [
-                torch.where(uvalid[i], op, const)
-                for op, const in zip(ops, self.inv_consts)
-            ]
-            cnt = torch.where(uvalid[i], ucounts[i].to(torch.int32), 0)
-            runs.append(tuple(ops) + (cnt,))
+        return [
+            histogram_run(pack_flag_key(ukeys[i], ~uvalid[i], spec),
+                          ucounts[i], uvalid[i], spec)
+            for i in range(ukeys.shape[0])
+        ]
+
+    def merge_runs(self, state: StoreState, runs: list[tuple]
+                   ) -> StoreState:
+        """Fold R ascending runs of (operands..., int32 count), whose
+        invalid rows hold the invalid constant with count 0, into the
+        store.  A balanced tree of stable merges (kernel 2) joins them,
+        then one merge-dedupe (kernel 3) folds them into the store,
+        summing the counts of equal keys.  No host synchronisation.
+        """
         n_keys = self.n_ops
         while len(runs) > 1:
             nxt = [

@@ -20,6 +20,11 @@ keys still meet; two distinct valid keys that agree on the whole prefix
 (probability ~P^2 / 2^65 a batch) would split a run, and are detected
 exactly in `UniqueCounts.collided` for the caller to recount with the full
 sort.
+
+`count_unique_ops` hands the histogram over as kernel 1 compacted it, in
+operand columns; `histogram_run` masks those into the run that the store
+merge takes (core/store.py `merge_runs`), so a caller that folds the
+histogram straight into a store never builds the [P, lanes] key rows.
 """
 
 from __future__ import annotations
@@ -31,6 +36,18 @@ import torch
 from tsxcount_tpu_torch.config import KmerSpec
 from tsxcount_tpu_torch.ops.compact import compact_flagged
 from tsxcount_tpu_torch.ops.lanes import i32, lexsort_perm, u32
+
+
+class UniqueOps(NamedTuple):
+    """count_unique_ops' histogram of one batch, as kernel 1 compacted it
+    (fixed shape).  Rows [0, n_unique) are real and ascending; row
+    n_unique is the invalid run's representative where the batch has
+    invalid windows; the rest is unspecified."""
+
+    ops: tuple              # int32 [P] each: msb-first flagged operands
+    counts: torch.Tensor    # int32 [P]
+    n_unique: torch.Tensor  # int64 0-d
+    collided: torch.Tensor | None = None  # as UniqueCounts.collided
 
 
 class UniqueCounts(NamedTuple):
@@ -77,18 +94,24 @@ def pack_flag_key_cols(cols: Sequence[torch.Tensor], invalid: torch.Tensor,
     )
 
 
-def unpack_flag_key(ops: Sequence[torch.Tensor], spec: KmerSpec
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Inverse of pack_flag_key -> (keys (P, lanes) int32, invalid bool)."""
+def unpack_flag_key_cols(ops: Sequence[torch.Tensor], spec: KmerSpec
+                         ) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """Inverse of pack_flag_key_cols -> (lane columns, lsb lane first;
+    invalid bool)."""
     lanes = spec.lanes
     if spec.top_lane_bits < 32:
         top = ops[0]
         invalid = (u32(top) >> spec.top_lane_bits) != 0
-        lanes_list = list(reversed(ops[1:lanes])) + [top & spec.top_lane_mask]
-    else:
-        invalid = ops[0] != 0
-        lanes_list = list(reversed(ops[1 : lanes + 1]))
-    return torch.stack(lanes_list, dim=-1), invalid
+        return (list(reversed(ops[1:lanes])) + [top & spec.top_lane_mask],
+                invalid)
+    return list(reversed(ops[1 : lanes + 1])), ops[0] != 0
+
+
+def unpack_flag_key(ops: Sequence[torch.Tensor], spec: KmerSpec
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of pack_flag_key -> (keys (P, lanes) int32, invalid bool)."""
+    cols, invalid = unpack_flag_key_cols(ops, spec)
+    return torch.stack(cols, dim=-1), invalid
 
 
 def invalid_bits(ops: Sequence[torch.Tensor], spec: KmerSpec
@@ -150,6 +173,13 @@ def sort_uniform_prefix(ops: Sequence[torch.Tensor], spec: KmerSpec
     return s, (same & diff & row_valid).any()
 
 
+def _flagged_ops(kmers, valid: torch.Tensor, spec: KmerSpec) -> tuple:
+    """Rows or lane columns + validity -> msb-first flagged operands."""
+    if isinstance(kmers, (list, tuple)):
+        return pack_flag_key_cols(kmers, ~valid, spec)
+    return pack_flag_key(kmers, ~valid, spec)
+
+
 def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
                  uniform_prefix: bool = False,
                  weights: torch.Tensor | None = None) -> UniqueCounts:
@@ -164,14 +194,25 @@ def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
     package bounds that number with `max_multiplicity`).  Weighted
     histograms take the full sort.
     """
-    if isinstance(kmers, (list, tuple)):
-        ops = pack_flag_key_cols(kmers, ~valid, spec)
-    else:
-        ops = pack_flag_key(kmers, ~valid, spec)
+    if weights is not None:
+        return _count_weighted(_flagged_ops(kmers, valid, spec), weights,
+                               spec)
+    uo = count_unique_ops(kmers, valid, spec, uniform_prefix)
+    ukeys, _ = unpack_flag_key(uo.ops, spec)
+    arange = torch.arange(ukeys.shape[0], device=ukeys.device)
+    return UniqueCounts(
+        keys=ukeys, counts=uo.counts, valid=arange < uo.n_unique,
+        n_unique=uo.n_unique, collided=uo.collided,
+    )
+
+
+def count_unique_ops(kmers, valid: torch.Tensor, spec: KmerSpec,
+                     uniform_prefix: bool = False) -> UniqueOps:
+    """count_unique (unweighted) with the keys left as kernel 1 wrote
+    them: msb-first flagged operand columns, not [P, lanes] rows."""
+    ops = _flagged_ops(kmers, valid, spec)
     p = ops[0].shape[0]
     dev = ops[0].device
-    if weights is not None:
-        return _count_weighted(ops, weights, spec)
     collided = None
     if uniform_prefix:
         ops_sorted, collided = sort_uniform_prefix(ops, spec)
@@ -184,13 +225,21 @@ def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
     # past the last run, clamp positions to p so the differences vanish
     pos = torch.where(arange < n_flags, rep[-1], p)
     pos_next = torch.cat([pos[1:], pos.new_full((1,), p)])
-    counts = pos_next - pos
-    ukeys, _ = unpack_flag_key(rep[:-1], spec)
     n_unique = (flag & ~invalid_bits(ops_sorted, spec)).sum()
-    return UniqueCounts(
-        keys=ukeys, counts=counts, valid=arange < n_unique,
-        n_unique=n_unique, collided=collided,
-    )
+    return UniqueOps(ops=rep[:-1], counts=pos_next - pos,
+                     n_unique=n_unique, collided=collided)
+
+
+def histogram_run(ops: Sequence[torch.Tensor], counts: torch.Tensor,
+                  valid: torch.Tensor, spec: KmerSpec) -> tuple:
+    """A batch histogram's flagged operands and counts as one ascending
+    run of the store merge (core/store.py `merge_runs`): the rows where
+    `valid` is False become the invalid constant with count 0, so the
+    invalid run's representative and the unspecified tail sort last as
+    one constant run.  Returns (operands..., int32 counts)."""
+    run = [torch.where(valid, op, const)
+           for op, const in zip(ops, invalid_constants(spec))]
+    return tuple(run) + (torch.where(valid, counts.to(torch.int32), 0),)
 
 
 def _count_weighted(ops: Sequence[torch.Tensor], weights: torch.Tensor,

@@ -22,6 +22,14 @@ batch on every rank:
     absorbs: kernel 3), the table's weighted re-dedupe of the runs and an
     insert in split rounds (kernels 5, 4 and 1).
 
+At one shard with no spill carry the route is the identity, and a step
+takes the one-shard hand-off instead: the dedupe's compacted operand
+columns (ops/count.py `count_unique_ops`) become the store merge's run
+as they are (`histogram_run`, one masked pass), with no [P, lanes] rows,
+padding, slice gather or exchange; `merge_runs` folds the runs, and the
+table re-dedupes its one run from the same columns.  `stats()`
+counts those steps (`route_direct_batches`).
+
 Rows past `route_cap` of a destination are appended to a per-destination
 spill carry, exchanged and folded at the next `flush`; rows past the
 carry too are counted as hard spill.  The hard spill and the dedupe's
@@ -81,7 +89,12 @@ from tsxcount_tpu_torch.core.table import REFERENCE_FIELDS as TABLE_FIELDS
 from tsxcount_tpu_torch.core.table import QuotientTable
 from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats, ReadPacker
 from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
-from tsxcount_tpu_torch.ops.count import count_unique
+from tsxcount_tpu_torch.ops.count import (
+    count_unique,
+    count_unique_ops,
+    histogram_run,
+    unpack_flag_key_cols,
+)
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
 from tsxcount_tpu_torch.ops.mix import LaneMixBijection
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
@@ -205,6 +218,9 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         # a batch can overflow a destination: its sorted tail past
         # route_cap goes to the spill carry, folded at the next flush
         self._carry_enabled = self.route_cap < self.batch.positions
+        # one shard and no carry: the route is the identity, so a batch's
+        # histogram goes to the fold as it leaves the dedupe
+        self._direct_route = n_shards == 1 and not self._carry_enabled
         self.lsm = False
         self.lsm_growth = lsm_growth
         if backend == "sort":
@@ -256,6 +272,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         # last finish, summed over the ranks there
         self._health = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._spill_recovered = 0
+        self._route_direct_batches = 0  # this rank's one-shard hand-offs
         if self.backend == "table":
             self.table.inserts = self.table.rounds = 0
         self.packer = self._new_packer()
@@ -370,13 +387,17 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             self._empty = self._put(PackedBatch.empty(self.batch))
         return self._empty
 
-    def _route(self, buf: torch.Tensor):
-        """One batch: extract -> (canonical) -> hash -> dedupe -> slices
-        -> spill carry -> exchange.  Returns this rank's received runs
-        (keys [n, route_cap, lanes], counts [n, route_cap], lens [n])."""
+    @property
+    def _prefix_sort(self) -> bool:
+        """The dedupe sorts on the hashed keys' uniform prefix; the
+        identity image is the raw key: not uniform, full sort."""
+        return (self.hashed_store and not self._mix_full_sort
+                and not self.hash_fn.identity)
+
+    def _batch_keys(self, buf: torch.Tensor) -> tuple:
+        """extract -> (canonical) -> hash: the batch's keys (lane columns,
+        or rows from the GF(2) product) and their validity."""
         batch, spec = self.batch, self.spec
-        n, cap, lanes = self.n_shards, self.route_cap, spec.lanes
-        dev = buf.device
         keys = extract_kmer_cols(buf[: batch.total_words], batch)
         if self.canonical:  # before the hash, as in the JAX package
             keys = canonicalize_cols(keys, spec)
@@ -384,11 +405,31 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             keys = self.route_map.apply_cols(keys)
         elif self.hashed_store:  # the GF(2) product takes stacked rows
             keys = self.route_map.apply(torch.stack(keys, dim=-1))
-        valid = intervals_to_valid(buf[batch.total_words :], batch)
-        # the identity image is the raw key: not uniform, full sort
-        uc = count_unique(keys, valid, spec, uniform_prefix=(
-            self.hashed_store and not self._mix_full_sort
-            and not self.hash_fn.identity))
+        return keys, intervals_to_valid(buf[batch.total_words :], batch)
+
+    def _route_direct(self, buf: torch.Tensor) -> tuple:
+        """One batch where the route is the identity (one shard, no
+        carry): extract -> (canonical) -> hash -> dedupe, and kernel 1's
+        operand columns masked into one run of the store merge.  Returns
+        that run (operands..., int32 counts)."""
+        uo = count_unique_ops(*self._batch_keys(buf), self.spec,
+                              uniform_prefix=self._prefix_sort)
+        if uo.collided is not None:
+            self._health[1] += uo.collided.to(torch.int64)
+        self._route_direct_batches += 1
+        rows = torch.arange(uo.counts.shape[0], device=buf.device)
+        return histogram_run(uo.ops, uo.counts, rows < uo.n_unique,
+                             self.spec)
+
+    def _route(self, buf: torch.Tensor):
+        """One batch: extract -> (canonical) -> hash -> dedupe -> slices
+        -> spill carry -> exchange.  Returns this rank's received runs
+        (keys [n, route_cap, lanes], counts [n, route_cap], lens [n])."""
+        spec = self.spec
+        n, cap, lanes = self.n_shards, self.route_cap, spec.lanes
+        dev = buf.device
+        uc = count_unique(*self._batch_keys(buf), spec,
+                          uniform_prefix=self._prefix_sort)
         owner = owner_of_hash(uc.keys[:, -1], spec, n)
         starts = _owner_starts(torch.where(uc.valid, owner, n), n)
         lens = starts[1:] - starts[:-1]
@@ -426,8 +467,9 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
     def _step_buf(self, buf: torch.Tensor) -> None:
         """Route one batch (every rank steps together) and fold the
         received runs every merge_every steps."""
+        route = self._route_direct if self._direct_route else self._route
         with span("step"):
-            self._pending_recv.append(self._route(buf))
+            self._pending_recv.append(route(buf))
         self.batches_processed += self.n_shards
         self._maybe_progress(getattr(self, "_live_stats_fn", None))
         if len(self._pending_recv) >= self.merge_every:
@@ -441,6 +483,9 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             return
         self._pending_recv = []
         with span("fold"):
+            if self._direct_route:
+                self._fold_runs(pend)
+                return
             keys = torch.cat([p[0] for p in pend])      # [R*n, cap, lanes]
             counts = torch.cat([p[1] for p in pend])    # [R*n, cap]
             lens = torch.cat([p[2] for p in pend])      # [R*n]
@@ -456,6 +501,19 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
                               valid.reshape(-1), self.spec,
                               weights=counts.reshape(-1))
             self.state = table_insert(self.table, self.state, uc)
+
+    def _fold_runs(self, runs: list[tuple]) -> None:
+        """Fold the one-shard hand-off's runs: the sort backend merges
+        them into the store (or the LSM's L0) as they are; the table
+        re-dedupes its one run (merge_every is 1) with its counts as
+        weights, from the run's operand columns."""
+        if self.backend == "sort":
+            self.state = self.store.merge_runs(self.state, runs)
+            return
+        (run,) = runs
+        cols, invalid = unpack_flag_key_cols(run[:-1], self.spec)
+        uc = count_unique(cols, ~invalid, self.spec, weights=run[-1])
+        self.state = table_insert(self.table, self.state, uc)
 
     def _collapse_lsm(self) -> None:
         """Absorb every LSM level into the top one (reads see one store);
@@ -705,6 +763,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             shard_imbalance=round(float(ns.max()) / max(1.0, float(ns.mean())),
                                   4),
             spill_recovered=self._spill_recovered,
+            route_direct_batches=self._route_direct_batches,
             table_inserts=self.table.inserts if table else 0,
             table_rounds=self.table.rounds if table else 0,
         )
