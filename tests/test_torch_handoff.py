@@ -6,7 +6,8 @@ Every store it builds is held word for word against the padded route
 (the same counter with `_direct_route` cleared: rows, padding, the slice
 gather, the identity exchange and `merge_stacked`), at the benchmark's
 k = 14 and k = 127 configurations at small shapes: the flat store after
-`count_file`, the LSM's levels mid-stream, and the table's state.  Also:
+`count_file`, the LSM's levels mid-stream, and the table's state; and
+the plain KmerCounter's store against the row fold it replaced.  Also:
 the hand-off's step count in `stats()` and a prefix collision that
 recounts through the hand-off (a carry's padded route and several ranks:
 tests/test_torch_sharded.py, tests/test_torch_distributed.py)."""
@@ -19,10 +20,12 @@ torch = pytest.importorskip("torch")
 from portbench import reference, run, traffic  # noqa: E402
 from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
 from tsxcount_tpu_torch.core.store import CountStore  # noqa: E402
+from tsxcount_tpu_torch.core.counter import KmerCounter  # noqa: E402
 from tsxcount_tpu_torch.ops.count import (  # noqa: E402
     count_unique,
     count_unique_ops,
     histogram_run,
+    unique_rows,
 )
 from tsxcount_tpu_torch.parallel import sharded as sharded_mod  # noqa: E402
 from tsxcount_tpu_torch.parallel.sharded import (  # noqa: E402
@@ -117,6 +120,33 @@ def test_hand_off_table_state_equals_the_padded_route(fastq):
         np.testing.assert_array_equal(a[field], b[field], err_msg=field)
     st = direct.stats()
     assert st["route_direct_batches"] == st["batches"] > 0
+
+
+@pytest.mark.parametrize("k", list(CONFIGS.values()))
+def test_plain_counter_store_equals_the_row_fold(fastq, k):
+    """KmerCounter's sort step hands kernel 1's operand runs to
+    `merge_runs` (CountStore.merge_batches): its store equals, word for
+    word, a counter that unpacks the same batches to [P, lanes] rows and
+    folds them with `merge_stacked`, the path before the hand-off (at
+    k = 127 the lane mix's images)."""
+    kw = dict(k=k, l=16, batch_words=256, lsm=False, device="cpu")
+    runs, rows = KmerCounter(**kw), KmerCounter(**kw)
+
+    def row_fold(state, uos):
+        ucs = [unique_rows(uo, rows.store.spec) for uo in uos]
+        return rows.store.merge_stacked(
+            state, *(torch.stack([getattr(u, f) for u in ucs])
+                     for f in ("keys", "counts", "valid")))
+
+    rows.store.merge_batches = row_fold
+    for c in (runs, rows):
+        c.count_file(fastq)
+    assert runs.batches_processed > runs.merge_every
+    assert (runs.hash_first == "mix") is (k == 127)
+    _same_store(runs.state, rows.state)
+    want = reference.reference_count(fastq, k)
+    check = reference.compare(want, run.export(runs, k))
+    assert set(check.values()) == {0}, check
 
 
 def test_reset_clears_the_hand_off_count(fastq):

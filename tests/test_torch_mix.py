@@ -217,17 +217,17 @@ def test_collision_recounts_in_count_file(tmp_path, monkeypatch, capsys):
     """A collision flag forced on every prefix-sorted batch: count_file
     recounts with the full sort and stays exact; add_reads + finish, which
     cannot replay their input, raise PrefixCollision."""
-    real = counter_mod.count_unique
+    real = counter_mod.count_unique_ops
     calls = []
 
     def colliding(kmers, valid, spec, uniform_prefix=False):
         calls.append(uniform_prefix)
-        uc = real(kmers, valid, spec, uniform_prefix=uniform_prefix)
+        uo = real(kmers, valid, spec, uniform_prefix=uniform_prefix)
         if uniform_prefix:
-            uc = uc._replace(collided=torch.ones((), dtype=torch.bool))
-        return uc
+            uo = uo._replace(collided=torch.ones((), dtype=torch.bool))
+        return uo
 
-    monkeypatch.setattr(counter_mod, "count_unique", colliding)
+    monkeypatch.setattr(counter_mod, "count_unique_ops", colliding)
     k = 127
     reads = _wide_reads(np.random.default_rng(3), k)
     fastq = tmp_path / "r.fastq"

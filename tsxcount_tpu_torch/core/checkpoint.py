@@ -50,10 +50,21 @@ def save_counter(counter, path: str | Path) -> None:
     if _is_sharded(counter):
         _save_sharded(counter, path)
         return
-    # the packer's partial batch and the pending merges first, so that the
-    # file's state, stats and batches_processed all include every read fed
-    counter.flush()
-    meta = {
+    # the packer's partial batch and the pending merges first (the LSM:
+    # everything in the top level), so that the file's state, stats and
+    # batches_processed all include every read fed
+    ref = counter._shard_reference()
+    # n_shards 0 = unsharded, with the JAX package's routing_hash
+    meta = _meta(counter, counter.packer.stats, 0, "gf2",
+                 counter.hash_first, counter.mix_prefix)
+    _write(path, meta, ref, counter.hash_fn)
+
+
+def _meta(counter, stats, n_shards: int, routing_hash: str, hash_first,
+          mix_prefix: bool) -> dict:
+    """The file's meta record: the counter's options, the whole stream's
+    ingest stats, and the fields where the two counters differ."""
+    return {
         "format": FORMAT_VERSION,
         "k": counter.spec.k,
         "l": counter.l,
@@ -63,24 +74,17 @@ def save_counter(counter, path: str | Path) -> None:
         "identity_hash": counter.hash_fn.identity,
         "canonical": counter.canonical,
         "collapse_hp": counter.collapse_hp,
-        "hash_first": counter.hash_first,
-        "mix_prefix": counter.mix_prefix,
-        "stats": dataclasses.asdict(counter.packer.stats),
+        "hash_first": hash_first,
+        "mix_prefix": mix_prefix,
+        "stats": dataclasses.asdict(stats),
         "batches_processed": counter.batches_processed,
         "lsm": counter.lsm,
         "lsm_growth": counter.lsm_growth,
         "merge_every": counter.merge_every,
-        "n_shards": 0,  # 0 = unsharded
-        "routing_hash": "gf2",  # the JAX package's value for unsharded
-        "max_reprobes": (counter.table.max_reprobes
-                         if counter.backend == "table" else 0),
+        "n_shards": n_shards,
+        "routing_hash": routing_hash,
+        "max_reprobes": counter.store.max_reprobes,
     }
-    if counter.backend == "table":
-        ref = counter.table.state_to_reference(counter.state)
-    else:
-        counter._collapse_if_lsm()  # the LSM: everything in the top level
-        ref = counter.store.state_to_reference(counter.state)
-    _write(path, meta, ref, counter.hash_fn)
 
 
 def _write(path, meta: dict, state: dict, hash_fn) -> None:
@@ -94,7 +98,9 @@ def _save_sharded(counter, path: str | Path) -> None:
     arrays = shard_states_to_reference(counter)
     stats = counter._global_stats()
     if counter.rank == 0:
-        _write_sharded(counter, path, stats, arrays)
+        meta = _meta(counter, stats, counter.n_shards, counter.routing_hash,
+                     False, False)
+        _write(path, meta, arrays, counter.hash_fn)
     counter._sum([0])  # no rank returns before the file is whole
 
 
@@ -124,33 +130,7 @@ def shard_states_from_reference(counter, arrays) -> None:
         return np.split(arr, n)[rank]
 
     counter._load_shard_reference(
-        {name: row(name) for name in counter._reference_fields})
-
-
-def _write_sharded(counter, path, stats, state) -> None:
-    meta = {
-        "format": FORMAT_VERSION,
-        "k": counter.spec.k,
-        "l": counter.l,
-        "s": counter.s,
-        "backend": counter.backend,
-        "n_policy": counter.n_policy,
-        "identity_hash": counter.hash_fn.identity,
-        "canonical": counter.canonical,
-        "collapse_hp": counter.collapse_hp,
-        "hash_first": False,
-        "mix_prefix": False,
-        "stats": dataclasses.asdict(stats),
-        "batches_processed": counter.batches_processed,
-        "lsm": counter.lsm,
-        "lsm_growth": counter.lsm_growth,
-        "merge_every": counter.merge_every,
-        "n_shards": counter.n_shards,
-        "routing_hash": counter.routing_hash,
-        "max_reprobes": (counter.table.max_reprobes
-                         if counter.backend == "table" else 0),
-    }
-    _write(path, meta, state, counter.hash_fn)
+        {name: row(name) for name in counter.store.reference_fields})
 
 
 def _gather_shards(arr: np.ndarray, counter) -> list[np.ndarray] | None:
@@ -228,14 +208,8 @@ def load_counter(path: str | Path, batch_words: int = 1 << 16,
         )
         # the matrix defines a table's or a GF(2) image's layout: the file's
         counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
-        if counter.backend == "table":
-            names = ("slots", "n", "spilled", "probe_hist")
-            counter.load_table_state(
-                {name: _state_array(name, data) for name in names})
-        else:
-            names = ("keys", "digits", "used", "n", "overflowed")
-            counter.load_store_state(
-                {name: _state_array(name, data) for name in names})
+        counter.load_store_state({name: _state_array(name, data)
+                                  for name in counter.store.reference_fields})
         counter.packer.stats = PackStats(**meta["stats"])
         counter.batches_processed = meta["batches_processed"]
     return counter
@@ -267,7 +241,8 @@ def _load_sharded(meta, data, batch_words, device):
     # the GF(2) routing image's layout: the file's matrix
     counter.hash_fn.load(data["hash_matrix"], data["hash_inverse"])
     shard_states_from_reference(counter, {
-        name: _state_array(name, data) for name in counter._reference_fields})
+        name: _state_array(name, data)
+        for name in counter.store.reference_fields})
     # the file's ingest stats are the whole stream's: one rank holds them
     if counter.rank == 0:
         counter.packer.stats = PackStats(**meta["stats"])

@@ -1,25 +1,30 @@
-"""KmerCounter — the end-to-end streaming counter.
+"""KmerCounter — the end-to-end streaming counter — and BaseCounter, the
+user surface it shares with parallel/sharded.py's ShardedKmerCounter.
 
-Streams FASTQ/FASTA records, packs them on the host (io/), and folds each
-fixed-shape batch through the device: window extraction and an exact batch
-histogram (sort + kernel 1), then, by backend (the reference's --mode
-strings map onto the two):
-  * "sort": every `merge_every` batches one store merge (kernel 2's merge
-    tree, then kernel 3 into the sorted store, core/store.py; into the
-    LSM store's L0 where its rule engages, core/lsm.py).  From 8
-    lanes (k >= 113), or with hash_first, each batch's keys first go
-    through a bijection, the lane mix (ops/mix.py, one kernel) or with
-    hash_first="gf2" the seeded GF(2) matrix (ops/gf2.py, a float32
-    matmul on bit planes): the store holds the images and the dedupe
-    sorts only their >= 64-bit prefix.  With mix_prefix the keys are
-    extended by two mixing-hash columns instead (ops/mix.py mix_cols),
-    the store holds the extended keys and the dedupe sorts (flag,
-    mix_hi, mix_lo).  Either way a detected prefix collision makes
-    count_file recount with the full sort;
-  * "table": an insert into the quotient table (core/table.py) in reprobe
-    rounds of shrinking width (kernels 5, 4 and 1 per round), the widths
-    chosen on the host from the batch's distinct count and each round's
-    leftover count, exactly as the JAX package chooses them.
+Which module decides what:
+  * this module's KmerCounter: the backend (once, in its constructor,
+    when it builds the store), the LSM rule and the key maps (hash_first,
+    mix_prefix, key_map), and its step: extract -> (canonical) -> map ->
+    dedupe (ops/count.py count_unique_ops: sort + kernel 1);
+  * the store (core/store.py CountStore, core/lsm.py LSMStore,
+    core/table.py QuotientTable, one interface): how a step's output is
+    folded in (every `merge_every` batches: kernel 2's merge tree and
+    kernel 3 into the sorted store or the LSM's L0; on the table, reprobe
+    rounds of kernels 5, 4 and 1 at the JAX package's host widths), what
+    reads see, what "full" means and how counts decode;
+  * BaseCounter: ingest helpers, the recount after a prefix collision,
+    `finish`'s one read of the flags, the reads, check, stats and the
+    homopolymer bonus, for both counters.
+
+From 8 lanes (k >= 113), or with hash_first, each batch's keys first go
+through a bijection, the lane mix (ops/mix.py, one kernel) or with
+hash_first="gf2" the seeded GF(2) matrix (ops/gf2.py, a float32 matmul on
+bit planes): the store holds the images and the dedupe sorts only their
+>= 64-bit prefix.  With mix_prefix the keys are extended by two
+mixing-hash columns instead (ops/mix.py mix_cols), the store holds the
+extended keys and the dedupe sorts (flag, mix_hi, mix_lo).  Either way a
+detected prefix collision makes count_file recount with the full sort.
+
 Parsing, packing and the host-to-device copy run on a producer thread
 (io/pipeline.py); this thread launches the device work, which PyTorch
 queues without waiting.  The sort backend synchronises once per file or
@@ -29,7 +34,7 @@ that size the rounds).
 Canonical mode folds each window to min(kmer, revcomp) after extraction
 (ops/canonical.py); homopolymer collapse splices long all-X runs at ingest
 and adds the elided counts back wherever counts leave the store
-(HpBonusMixin).  Both, the LSM rule and the store layouts are the JAX
+(BaseCounter).  Both, the LSM rule and the store layouts are the JAX
 package's, so checkpoints (core/checkpoint.py) load in either package.
 
 The device is explicit: "cuda" (the default) raises where no GPU is
@@ -49,14 +54,14 @@ import numpy as np
 import torch
 
 from tsxcount_tpu_torch._build import resolve_device
-from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, counts_to_int
+from tsxcount_tpu_torch.config import BatchSpec, KmerSpec
 from tsxcount_tpu_torch.core.lsm import LSMStore
 from tsxcount_tpu_torch.core.store import CountStore
 from tsxcount_tpu_torch.core.table import QuotientTable
-from tsxcount_tpu_torch.io.fastx import read_fastx
+from tsxcount_tpu_torch.io.fastx import peek_read_lens, read_fastx
 from tsxcount_tpu_torch.io.packer import PackedBatch, ReadPacker, add_stats
 from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
-from tsxcount_tpu_torch.ops.count import UniqueCounts, count_unique
+from tsxcount_tpu_torch.ops.count import UniqueOps, count_unique_ops
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
 from tsxcount_tpu_torch.ops.mix import (
     LaneMixBijection,
@@ -81,16 +86,6 @@ MODE_TO_BACKEND = {
     "EXPERIMENTAL": "table",
 }
 _MIX_AUTO_MIN_LANES = 8  # hash_first=None: the lane mix from 8 lanes up
-_TABLE_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
-
-_QUERY_BATCH = 1 << 16
-_HINT_SAMPLE = 64  # reads sampled for the auto read-length hint
-
-
-def _peek_read_lens(path) -> list[int]:
-    """Lengths of the first few records (for interval-budget auto-sizing)."""
-    return [len(rec.seq)
-            for rec in itertools.islice(read_fastx(path), _HINT_SAMPLE)]
 
 
 @dataclasses.dataclass
@@ -131,49 +126,87 @@ class PrefixCollision(RuntimeError):
     input via count_file."""
 
 
-def table_insert(table: QuotientTable, state, uc: UniqueCounts):
-    """Insert a batch histogram into the table with the JAX package's
-    host schedule, which decides which arbitration each row meets and so
-    the table's layout: round 0 at the narrowest of P/4, P/2 (at least
-    256) that holds the batch's distinct keys, else P; each later round
-    at the next power of two >= the rows left (at least 256); the plain
-    tail once w * slot_cols <= 2^18 or from round 6 on.  One host read
-    of the distinct count and one of each round's rows left."""
-    table.inserts += 1
-    p = uc.keys.shape[0]
-    with span("sync"):
-        n = int(uc.n_unique)
-    width = p
-    for w in (p // 4, p // 2):
-        if 256 <= w and n <= w:
-            width = w
-            break
-    st, carry, _, n_left = table.split_round(
-        state, 0, *table.round0_args(
-            uc.keys[:width], uc.counts[:width], uc.valid[:width]))
-    r = 1
-    while True:
-        with span("sync"):
-            f = int(n_left)
-        if f == 0:
-            return table.renorm(st)
-        w = min(width, max(256, 1 << (f - 1).bit_length()))
-        if w * table.slot_cols <= _TABLE_RESIDUE_ELEMS or r >= 6:
-            return table.residue_phase(st, carry, r, w)
-        p0, cl, c, a = carry
-        st, carry, _, n_left = table.split_round(
-            st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
-        r += 1
+class BaseCounter:
+    """The user surface of both counters (this module's KmerCounter and
+    parallel/sharded.py's ShardedKmerCounter): ingest helpers, the
+    prefix-collision recount, `finish`'s one read of the flags, reads,
+    the check, stats and the homopolymer bonus.  A counter holds its
+    store in `store` (core/store.py's interface) and its state in
+    `state`, and defines what differs: `_prepare` (the folds a read needs
+    first), `_query_keys`, `_export_parts`, `_own_stats`, `flush`,
+    `_count_file`, and the collective `_sum` where it has ranks.
 
+    Homopolymer collapse: with it on, the ingest splices all-c runs down
+    to 2k-2 bases and owes `stats.hp_bonus[c]` occurrences of the all-c
+    k-mer (io/packer.py collapse_homopolymers).  The spliced run keeps k-1
+    all-c windows, so the key is in the store; the owed count is added on
+    the host wherever counts leave the store (get_counts, items, check).
+    """
 
-class IngestProgressMixin:
-    """One stderr progress line every `progress_every` batches (off at 0)."""
-
+    QUERY_BATCH = 1 << 16
+    HINT_SAMPLE = 64  # reads sampled for the auto read-length hint
     progress_every: int = 0
-    _progress_t0 = None
-    _progress_last = 0
+
+    def reset(self) -> None:
+        """Clear all counts and ingest stats."""
+        self.state = self.store.init_state()
+        self._to_fold: list = []  # step outputs the next fold takes
+        # [hard spill, prefix collisions] of the steps since the last
+        # finish, on the device (summed over the ranks there)
+        self._health = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.packer = self._new_packer()
+        # reads that took the native parser's one-pass path (a host count,
+        # not a PackStats field: checkpoints do not carry it)
+        self.parse_fast_reads = 0
+        self.batches_processed = 0
+        self.elapsed = 0.0
+        self._progress_t0 = None
+        self._progress_last = 0
+
+    # --- ingestion ---
+
+    def _new_packer(self) -> ReadPacker:
+        return ReadPacker(self.batch, n_policy=self.n_policy, seed=self.seed,
+                          collapse=self.collapse_hp)
+
+    def _adapt_read_len(self, read_lens) -> None:
+        """One-shot sizing of the interval budget from the shortest of the
+        first read lengths (read_len_hint=0); count state and ingest stats
+        carry over.  The sharded exchange's shapes depend on the positions
+        only, so ranks that size it differently still exchange alike."""
+        if not self._auto_hint:
+            return
+        self._auto_hint = False
+        lens = [int(x) for x in read_lens]
+        if not lens:
+            return
+        hint = max(self.spec.k, min(lens))
+        new_batch = dataclasses.replace(self.batch, read_len_hint=hint)
+        if new_batch.max_intervals == self.batch.max_intervals:
+            return
+        self.batch = new_batch
+        stats = self.packer.stats
+        self.packer = self._new_packer()
+        self.packer.stats = stats
+
+    def _hinted(self, reads: Iterable[str | bytes]) -> Iterator:
+        """`reads`, the read-length hint sized from its first reads."""
+        reads = iter(reads)
+        if self._auto_hint:
+            sample = list(itertools.islice(reads, self.HINT_SAMPLE))
+            self._adapt_read_len(len(s) for s in sample)
+            reads = itertools.chain(sample, reads)
+        return reads
+
+    def _put(self, pb: PackedBatch) -> torch.Tensor:
+        # words and validity intervals ride ONE buffer: one copy a batch,
+        # made on the producer thread
+        with span("put"):
+            return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
 
     def _maybe_progress(self, stats_fn=None) -> None:
+        """One stderr progress line every `progress_every` batches (off
+        at 0)."""
         if not self.progress_every:
             return
         if self._progress_t0 is None:
@@ -190,15 +223,163 @@ class IngestProgressMixin:
             file=sys.stderr, flush=True,
         )
 
+    def _sum(self, values) -> list[int]:
+        """A list of ints (or an int64 tensor on the counter's device) as
+        host ints: one host read."""
+        t = torch.as_tensor(values, dtype=torch.int64, device=self.device)
+        with span("sync"):
+            return t.tolist()
 
-class HpBonusMixin:
-    """Read-time homopolymer-collapse bonus.
+    def count_file(self, path: str | Path,
+                   use_native: bool | None = None) -> None:
+        """Count a FASTQ/FASTA(.gz) file.
 
-    With collapse on, the ingest splices all-c runs down to 2k-2 bases and
-    owes `stats.hp_bonus[c]` occurrences of the all-c k-mer (io/packer.py
-    collapse_homopolymers).  The spliced run keeps k-1 all-c windows, so
-    the key is in the store; the owed count is added on the host wherever
-    counts leave the store (get_counts, items, check).  No device work."""
+        use_native: True = the C++ parser (raises if it cannot be built),
+        False = the Python packer, None = the C++ parser if it builds.
+
+        A detected dedupe-prefix collision (hash_first, mix_prefix or a
+        hashed shard store; every rank sees it) is handled here by
+        recounting the file with the full sort, when this counter held no
+        earlier data; otherwise it raises PrefixCollision.
+        """
+        fresh = (self.batches_processed == 0
+                 and self._hp_stats().reads == 0)
+        try:
+            self._count_file(path, use_native)
+        except PrefixCollision:
+            if not fresh:
+                raise
+            print("tsxcount: dedupe-prefix collision detected; recounting "
+                  "with the full-comparator sort (exact, ~2x this file's "
+                  "cost)", file=sys.stderr)
+            self._mix_full_sort = True
+            self.reset()
+            self._count_file(path, use_native)
+
+    def finish(self) -> None:
+        """flush, then check the flags."""
+        self.flush()
+        self._check_flags()
+
+    def _check_flags(self) -> None:
+        """The store's full flag and the steps' spill and collision flags
+        in one read (summed over the ranks: every rank raises the same
+        error)."""
+        full = self.store.full_flag(self.state).to(torch.int64).reshape(1)
+        over, spill, taint = self._sum(torch.cat([full, self._health]))
+        self._health.zero_()
+        if over:
+            raise TableFull(f"{self.store.FULL}; rerun with a larger l")
+        if spill:
+            raise TableFull(
+                f"{spill} routed kmers overflowed both the per-destination "
+                f"capacity and the spill carry; increase capacity_factor")
+        if taint:
+            raise PrefixCollision(PrefixCollision.__doc__)
+
+    # --- queries & export ---
+
+    @property
+    def distinct(self) -> int:
+        self._prepare()
+        return self._sum(self.store.read_state(self.state).n.reshape(1))[0]
+
+    @property
+    def total_kmers(self) -> int:
+        st = self._hp_stats()
+        return st.windows + sum(st.hp_bonus)
+
+    def get_counts(self, kmers: list[str]) -> list[int]:
+        """Exact counts for a list of kmer strings (0 if absent)."""
+        if not kmers:
+            return []
+        keys = self._query_keys(kmers)
+        out: list[int] = []
+        for off in range(0, len(kmers), self.QUERY_BATCH):
+            q = keys[off : off + self.QUERY_BATCH].to(self.device)
+            out.extend(self._sum(self.store.counts_of(self.state, q)))
+        owed = self._hp_owed_query()
+        if owed:
+            out = [c + owed.get(s, 0) for s, c in zip(kmers, out)]
+        return out
+
+    def items(self) -> Iterator[tuple[str, int]]:
+        """Stream (kmer string, count) for every stored k-mer, in the
+        store's order (ascending by stored key, or the table's slot order;
+        shard after shard), with any owed homopolymer bonus added."""
+        self._prepare()
+        owed = self._hp_owed_emit()
+        for keys, counts in self._export_parts():
+            for kmer_str, cnt in zip(kmers_to_strings(keys, self.spec),
+                                     counts.tolist()):
+                yield kmer_str, cnt + owed.pop(kmer_str, 0)
+        # owed keys the store never saw (bonus set without its runs, e.g.
+        # a resumed partial state) are still owed
+        for kmer_str, cnt in sorted(owed.items()):
+            if cnt:
+                yield kmer_str, cnt
+
+    def to_dict(self) -> dict[str, int]:
+        return dict(self.items())
+
+    def check(self, golden_path: str | Path, abort: bool = False,
+              max_report: int = 20) -> CheckResult:
+        """Verify counts against a `kmer\\tcount` golden file."""
+        golden = read_golden(golden_path)
+        res = CheckResult()
+        kmers = list(golden.keys())
+        for kmer_str, got in zip(kmers, self.get_counts(kmers)):
+            want = golden[kmer_str]
+            res.n_checked += 1
+            if got == want:
+                res.n_matched += 1
+                continue
+            target = res.missing if got == 0 else res.mismatches
+            if len(target) < max_report:
+                target.append((kmer_str, want, got))
+            if abort:
+                raise CheckAbort(
+                    f"count mismatch for {kmer_str}: expected {want}, "
+                    f"got {got}"
+                )
+        # coverage audit: with exact counts, every stored kmer was queried
+        # iff the distinct totals match
+        res.extra_distinct = max(0, self.distinct - len(golden))
+        return res
+
+    def stats(self) -> dict:
+        st = dataclasses.asdict(self._hp_stats())
+        st = {"reads": st["reads"], "parse_fast_reads": self.parse_fast_reads,
+              **st}
+        st.update(backend=self.backend, k=self.spec.k, l=self.l,
+                  lanes=self.spec.lanes, lsm=self.lsm,
+                  device=str(self.device))
+        st.update(self._own_stats())
+        st.update(table_inserts=self.store.inserts,
+                  table_rounds=self.store.rounds)
+        return st
+
+    def print_stats(self) -> None:
+        for key, val in self.stats().items():
+            print(f"{key}: {val}")
+
+    # --- checkpoints (core/checkpoint.py) ---
+
+    def _shard_reference(self) -> dict[str, np.ndarray]:
+        """The read state as the JAX package's state fields (numpy), after
+        every pending read, batch and run is folded in."""
+        self.flush()
+        self._prepare()
+        return self.store.state_to_reference(self.state)
+
+    def _load_shard_reference(self, ref) -> None:
+        """Replace the counts with a JAX package state (numpy fields; an
+        LSM's collapsed top level), so that a count started there
+        continues here.  Ingest stats are kept."""
+        self._to_fold = []
+        self.state = self.store.state_from_reference(ref)
+
+    # --- the homopolymer bonus ---
 
     def _hp_stats(self):
         """The ingest stats that owe the bonus (the sharded counter sums
@@ -231,7 +412,7 @@ class HpBonusMixin:
         return out
 
 
-class KmerCounter(HpBonusMixin, IngestProgressMixin):
+class KmerCounter(BaseCounter):
     def __init__(
         self,
         k: int,
@@ -335,80 +516,26 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
                                         self.device)
         else:
             self.merge_every = 1
-            self.table = QuotientTable(self.spec, l, self.hash_fn,
-                                       max_reprobes=max_reprobes,
-                                       device=self.device)
+            self.store = self.table = QuotientTable(
+                self.spec, l, self.hash_fn, max_reprobes=max_reprobes,
+                device=self.device)
         self.progress_every = max(0, progress_every)
         self.reset()
 
-    def reset(self) -> None:
-        """Clear all counts and ingest stats."""
-        if self.backend == "sort":
-            self.state = self.store.init_state()
-            if self.lsm:
-                self.store.reset_schedule()
-        else:
-            self.state = self.table.init_state()
-            self.table.inserts = self.table.rounds = 0
-        self._pending: list[UniqueCounts] = []
-        # the batches' prefix-collision flags, ORed on the device
-        self._collided: torch.Tensor | None = None
-        self.packer = self._new_packer()
-        # reads that took the native parser's one-pass path (a host count,
-        # not a PackStats field: checkpoints do not carry it)
-        self.parse_fast_reads = 0
-        self.batches_processed = 0
-        self.elapsed = 0.0
-        self._progress_t0 = None
-        self._progress_last = 0
-
-    def _new_packer(self) -> ReadPacker:
-        return ReadPacker(self.batch, n_policy=self.n_policy, seed=self.seed,
-                          collapse=self.collapse_hp)
-
     def load_store_state(self, ref) -> None:
-        """Replace the counts with a store state from the JAX package
-        (`tsxcount_tpu` KmerCounter.state's fields as numpy arrays; with
-        the LSM store, its collapsed top level), so that a count started
-        there continues here.  Ingest stats are kept."""
-        self._pending = []
-        self.state = self.store.state_from_reference(ref)
+        """Replace the counts with a state from the JAX package
+        (`tsxcount_tpu` KmerCounter.state's fields as numpy arrays: a
+        store's, with the LSM store its collapsed top level, or a table's
+        slots, n, spilled and probe_hist at the same k, l, hash and
+        max_reprobes), so that a count started there continues here.
+        Ingest stats are kept."""
+        self._load_shard_reference(ref)
 
-    def load_table_state(self, ref) -> None:
-        """Replace the counts with a table state from the JAX package
-        (`tsxcount_tpu` KmerCounter.state's fields slots, n, spilled and
-        probe_hist as numpy arrays; the same k, l, hash and max_reprobes),
-        so that a count started there continues here."""
-        self.state = self.table.state_from_reference(ref)
-
-    def _adapt_read_len(self, read_lens) -> None:
-        """One-shot sizing of the interval budget from the shortest of the
-        first read lengths (read_len_hint=0); count state and ingest stats
-        carry over."""
-        if not self._auto_hint:
-            return
-        self._auto_hint = False
-        lens = [int(x) for x in read_lens]
-        if not lens:
-            return
-        hint = max(self.spec.k, min(lens))
-        new_batch = dataclasses.replace(self.batch, read_len_hint=hint)
-        if new_batch.max_intervals == self.batch.max_intervals:
-            return
-        self.batch = new_batch
-        stats = self.packer.stats
-        self.packer = self._new_packer()
-        self.packer.stats = stats
+    load_table_state = load_store_state
 
     # --- ingestion ---
 
-    def _put(self, pb: PackedBatch) -> torch.Tensor:
-        # words and validity intervals ride ONE buffer: one copy per batch,
-        # made on the producer thread
-        with span("put"):
-            return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
-
-    def _dedupe(self, buf: torch.Tensor) -> UniqueCounts:
+    def _dedupe(self, buf: torch.Tensor) -> UniqueOps:
         with span("step"):
             batch = self.batch
             keys = extract_kmer_cols(buf[: batch.total_words], batch)
@@ -423,41 +550,27 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
             valid = intervals_to_valid(buf[batch.total_words :], batch)
             uniform = bool((self.hash_first or self.mix_prefix)
                            and not self._mix_full_sort)
-            uc = count_unique(keys, valid, self.store_spec,
-                              uniform_prefix=uniform)
-            if uc.collided is not None:  # on the device, read once a file
-                self._collided = (uc.collided if self._collided is None
-                                  else self._collided | uc.collided)
-            return uc
+            uo = count_unique_ops(keys, valid, self.store_spec,
+                                  uniform_prefix=uniform)
+            if uo.collided is not None:  # on the device, read at finish
+                self._health[1] += uo.collided.to(torch.int64)
+            return uo
 
     def _flush_pending(self) -> None:
         """Fold the pending batch histograms into the store."""
-        if not self._pending:
+        if not self._to_fold:
             return
-        pend, self._pending = self._pending, []
+        pend, self._to_fold = self._to_fold, []
         with span("fold"):
-            self.state = self.store.merge_stacked(
-                self.state,
-                torch.stack([u.keys for u in pend]),
-                torch.stack([u.counts for u in pend]),
-                torch.stack([u.valid for u in pend]),
-            )
-
-    def _table_step(self, buf: torch.Tensor) -> None:
-        uc = self._dedupe(buf)
-        with span("fold"):
-            self.state = table_insert(self.table, self.state, uc)
+            self.state = self.store.merge_batches(self.state, pend)
 
     def _consume_bufs(self, bufs: Iterable[torch.Tensor],
                       stats_fn=None) -> None:
         t0 = time.perf_counter()
         for buf in bufs:
-            if self.backend == "table":
-                self._table_step(buf)
-            else:
-                self._pending.append(self._dedupe(buf))
-                if len(self._pending) >= self.merge_every:
-                    self._flush_pending()
+            self._to_fold.append(self._dedupe(buf))
+            if len(self._to_fold) >= self.merge_every:
+                self._flush_pending()
             self.batches_processed += 1
             self._maybe_progress(stats_fn)
         self.elapsed += time.perf_counter() - t0
@@ -466,12 +579,7 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         self._consume_bufs(self._put(pb) for pb in batches)
 
     def add_reads(self, reads: Iterable[str | bytes]) -> None:
-        reads = iter(reads)
-        if self._auto_hint:
-            sample = list(itertools.islice(reads, _HINT_SAMPLE))
-            self._adapt_read_len(len(s) for s in sample)
-            reads = itertools.chain(sample, reads)
-        for seq in reads:
+        for seq in self._hinted(reads):
             self._consume(self.packer.feed(seq))
 
     def flush(self) -> None:
@@ -482,69 +590,6 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         self._consume(self.packer.finish())
         self._flush_pending()
 
-    def finish(self) -> None:
-        """flush, then check capacity."""
-        self.flush()
-        self._check_capacity()
-
-    def _collapse_if_lsm(self) -> None:
-        if self.backend == "sort" and self.lsm:
-            self.state = self.store.collapse(self.state)
-
-    def _check_capacity(self) -> None:
-        # the one host synchronisation per file
-        if self.backend == "table":
-            with span("sync"):
-                spilled = int(self.state.spilled)
-            if spilled:
-                raise TableFull(
-                    f"{spilled} kmers unresolved after "
-                    f"{self.table.max_reprobes} reprobes; increase l or "
-                    f"max_reprobes"
-                )
-            return
-        # every level's overflow flag and the collision flag: one read
-        states = self.state if self.lsm else [self.state]
-        flags = [s.overflowed for s in states]
-        n_over = len(flags)
-        if self._collided is not None:
-            flags.append(self._collided)
-        self._collided = None
-        with span("sync"):
-            flags = torch.stack(flags).cpu().tolist()
-        if any(flags[:n_over]):
-            raise TableFull(
-                f"distinct kmers exceeded capacity 2^{self.l}; rerun with "
-                f"a larger l"
-            )
-        if any(flags[n_over:]):
-            raise PrefixCollision(PrefixCollision.__doc__)
-
-    def count_file(self, path: str | Path,
-                   use_native: bool | None = None) -> None:
-        """Count a FASTQ/FASTA(.gz) file.
-
-        use_native: True = the C++ parser (raises if it cannot be built),
-        False = the Python packer, None = the C++ parser if it builds.
-
-        A detected dedupe-prefix collision (hash_first or mix_prefix) is
-        handled here by recounting the file with the full sort, when this
-        counter held no earlier data; otherwise it raises PrefixCollision.
-        """
-        fresh = (self.batches_processed == 0
-                 and self.packer.stats.reads == 0)
-        try:
-            self._count_file(path, use_native)
-        except PrefixCollision:
-            if not fresh:
-                raise
-            print("tsxcount: dedupe-prefix collision detected; recounting "
-                  "with the full-comparator sort (exact, ~2x this file's "
-                  "cost)", file=sys.stderr)
-            self._mix_full_sort = True
-            self.reset()
-            self._count_file(path, use_native)
-
     def _count_file(self, path: str | Path, use_native: bool | None) -> None:
         from tsxcount_tpu_torch.io.native import (
             NativeFileReader,
@@ -553,7 +598,7 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
         from tsxcount_tpu_torch.io.pipeline import prefetch
 
         if self._auto_hint:
-            self._adapt_read_len(_peek_read_lens(path))
+            self._adapt_read_len(peek_read_lens(path, self.HINT_SAMPLE))
         if use_native is None:
             use_native = native_available()
         if use_native:
@@ -579,26 +624,18 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
                 prefetch(batches(), self._put, depth=self.prefetch_depth)
             )
         self._flush_pending()
-        self._check_capacity()
+        self._check_flags()
 
-    # --- queries & export ---
+    # --- reads (BaseCounter's) ---
 
-    @property
-    def distinct(self) -> int:
+    def _prepare(self) -> None:
         self._flush_pending()
-        self._collapse_if_lsm()
-        with span("sync"):
-            return int((self.state[-1] if self.lsm else self.state).n)
+        self.state = self.store.collapse(self.state)
 
-    @property
-    def total_kmers(self) -> int:
-        st = self.packer.stats
-        return st.windows + sum(st.hp_bonus)
-
-    def get_counts(self, kmers: list[str]) -> list[int]:
-        """Exact counts for a list of kmer strings (0 if absent)."""
-        if not kmers:
-            return []
+    def _query_keys(self, kmers: list[str]) -> torch.Tensor:
+        """The stored form of the query k-mers (int32 [N, lanes], on the
+        host: copied a chunk at a time).  Reads sum the LSM's levels, as
+        the JAX counter's do: no collapse."""
         self._flush_pending()
         keys = strings_to_kmers(kmers, self.spec)
         if self.canonical:
@@ -608,103 +645,21 @@ class KmerCounter(HpBonusMixin, IngestProgressMixin):
             keys = self.key_map.apply_host(keys)
         if self.mix_prefix:  # the store holds (raw, mix) extended keys
             keys = extend_keys_host(keys)
-        keys = keys.view(np.int32)
-        out: list[int] = []
-        for off in range(0, len(kmers), _QUERY_BATCH):
-            q = torch.from_numpy(keys[off : off + _QUERY_BATCH]).to(
-                self.device)
-            if self.backend == "sort":
-                counts, _ = self.store.lookup(self.state, q)
-                out.extend(counts.cpu().tolist())
-                continue
-            digits, found = self.table.lookup(self.state, q)
-            for (d0, d1, d2), ok in zip(digits.cpu().tolist(),
-                                        found.cpu().tolist()):
-                out.append(counts_to_int(d0, d1, d2) if ok else 0)
-        owed = self._hp_owed_query()
-        if owed:
-            out = [c + owed.get(s, 0) for s, c in zip(kmers, out)]
-        return out
+        return torch.from_numpy(keys.view(np.int32))
 
-    def items(self) -> Iterator[tuple[str, int]]:
-        """Stream (kmer string, count) for every stored k-mer: ascending
-        (sort backend) or in slot order (table backend), with any owed
-        homopolymer bonus added."""
-        self._flush_pending()
-        self._collapse_if_lsm()
-        if self.backend == "sort":
-            keys, counts, _ = self.store.to_host(self.state, self.key_map)
-            if self.mix_prefix:  # drop the mix columns
-                keys = strip_mix(keys)
-        else:
-            keys, counts, _ = self.table.to_host(self.state)
-        owed = self._hp_owed_emit()
-        for kmer_str, cnt in zip(kmers_to_strings(keys, self.spec),
-                                 counts.tolist()):
-            yield kmer_str, cnt + owed.pop(kmer_str, 0)
-        # owed keys the store never saw (bonus set without its runs, e.g.
-        # a resumed partial state) are still owed
-        for kmer_str, cnt in sorted(owed.items()):
-            if cnt:
-                yield kmer_str, cnt
+    def _export_parts(self) -> Iterator[tuple]:
+        keys, counts, _ = self.store.to_host(self.state, self.key_map)
+        if self.mix_prefix:  # drop the mix columns
+            keys = strip_mix(keys)
+        yield keys, counts
 
-    def to_dict(self) -> dict[str, int]:
-        return dict(self.items())
-
-    def check(self, golden_path: str | Path, abort: bool = False,
-              max_report: int = 20) -> CheckResult:
-        """Verify counts against a `kmer\\tcount` golden file."""
-        golden = read_golden(golden_path)
-        res = CheckResult()
-        kmers = list(golden.keys())
-        for kmer_str, got in zip(kmers, self.get_counts(kmers)):
-            want = golden[kmer_str]
-            res.n_checked += 1
-            if got == want:
-                res.n_matched += 1
-                continue
-            target = res.missing if got == 0 else res.mismatches
-            if len(target) < max_report:
-                target.append((kmer_str, want, got))
-            if abort:
-                raise CheckAbort(
-                    f"count mismatch for {kmer_str}: expected {want}, "
-                    f"got {got}"
-                )
-        # coverage audit: with exact counts, every stored kmer was queried
-        # iff the distinct totals match
-        res.extra_distinct = max(0, self.distinct - len(golden))
-        return res
+    def _own_stats(self) -> dict:
+        return dict(distinct_kmers=self.distinct,
+                    total_kmers=self.total_kmers,
+                    batches=self.batches_processed,
+                    device_seconds=round(self.elapsed, 4))
 
     def stats(self) -> dict:
-        table = self.backend == "table"
-        st = dataclasses.asdict(self.packer.stats)
-        st = {"reads": st["reads"], "parse_fast_reads": self.parse_fast_reads,
-              **st}
-        st.update(
-            backend=self.backend,
-            k=self.spec.k,
-            l=self.l,
-            lanes=self.spec.lanes,
-            lsm=self.lsm,
-            device=str(self.device),
-            distinct_kmers=self.distinct,
-            total_kmers=self.total_kmers,
-            batches=self.batches_processed,
-            device_seconds=round(self.elapsed, 4),
-            table_inserts=self.table.inserts if table else 0,
-            table_rounds=self.table.rounds if table else 0,
-        )
-        if table:
-            st["fill_factor"] = self.table.fill_factor(self.state)
-            st["spilled"] = int(self.state.spilled)
-            # reprobe-depth histogram, trailing zeros trimmed
-            hist = self.state.probe_hist.cpu().tolist()
-            while hist and hist[-1] == 0:
-                hist.pop()
-            st["probe_histogram"] = hist
+        st = super().stats()
+        st.update(self.store.state_stats(self.state))
         return st
-
-    def print_stats(self) -> None:
-        for key, val in self.stats().items():
-            print(f"{key}: {val}")

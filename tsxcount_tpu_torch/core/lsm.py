@@ -19,11 +19,13 @@ the JAX package's (`tsxcount_tpu/core/lsm.py`), so both packages hold the
 same level states after every flush.  Reads either sum the levels
 (`lookup`) or first `collapse()` everything into the top level.
 
-The state is a list of CountStore states, one a level; the methods carry
-CountStore's names so that the counter's sort backend calls one interface.
-merge_stacked, merge_runs and collapse update that list in place (and
-return it), so a level's old tensors go as soon as its new state exists:
-a cascade never holds two copies of the levels on the device.
+The state is a list of CountStore states, one a level, behind the store
+interface of core/store.py: reads see the top level (`read_state`), folds
+go into L0 and cascade, and the spill recovery's `merge_read` goes into the
+top level, as the JAX sharded counter's does.  The folds and collapse
+update that list in place (and return it), so a level's old tensors go as
+soon as its new state exists: a cascade never holds two copies of the
+levels on the device.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ import numpy as np
 import torch
 
 from tsxcount_tpu_torch.config import KmerSpec
-from tsxcount_tpu_torch.core.store import CountStore, StoreState
+from tsxcount_tpu_torch.core.store import CountStore, StoreBase, StoreState
+from tsxcount_tpu_torch.ops.count import UniqueCounts
 
 
-class LSMStore:
+class LSMStore(StoreBase):
     """Geometric cascade of CountStores with exact cross-level merges.
 
     capacity: distinct keys of the top level.  flush_rows: rows of one
@@ -75,7 +78,12 @@ class LSMStore:
         return caps + [int(capacity)]
 
     def init_state(self) -> list[StoreState]:
+        """Empty levels, and the cascade restarted."""
+        self.reset_schedule()
         return [lvl.init_state() for lvl in self.levels]
+
+    def read_state(self, states: list[StoreState]) -> StoreState:
+        return states[-1]
 
     def reset_schedule(self) -> None:
         """Restart the cascade counter (a fresh state on the same store)."""
@@ -115,6 +123,18 @@ class LSMStore:
             self._absorb(states, i)
             period *= self.growth
         return states
+
+    def merge_read(self, states: list[StoreState], uc: UniqueCounts
+                   ) -> list[StoreState]:
+        """Fold one deduplicated row histogram into the top level (the
+        JAX sharded counter's spill recovery).  Updates `states` in
+        place."""
+        states[-1] = self.levels[-1].merge_read(states[-1], uc)
+        return states
+
+    def full_flag(self, states: list[StoreState]) -> torch.Tensor:
+        """Whether any level overflowed."""
+        return torch.stack([st.overflowed for st in states]).any()
 
     def collapse(self, states: list[StoreState]) -> list[StoreState]:
         """Absorb every level into the top level (for exports), as the JAX
@@ -156,7 +176,7 @@ class LSMStore:
     def state_from_reference(self, ref) -> list[StoreState]:
         """Empty lower levels and the top level from a JAX store state (a
         checkpoint keeps the collapsed top level only)."""
-        states = self.init_state()
+        states = [lvl.init_state() for lvl in self.levels]
         states[-1] = self.levels[-1].state_from_reference(ref)
         return states
 

@@ -14,6 +14,27 @@ Two invariants, both of which once broke the JAX package's store:
     "invalid" rows on the next merge;
   * so the unused rows form ONE constant run at the end, which sorts after
     every real key and which the merge-dedupe kernel reports apart.
+
+The store interface.  CountStore, LSMStore (core/lsm.py) and QuotientTable
+(core/table.py) answer the same calls, so that a counter decides its
+backend once, when it builds the store, and then calls:
+  * `init_state()`: a fresh state (the LSM restarts its cascade, the table
+    its host counts);
+  * `read_state(state)` and `collapse(state)`: the state reads see, and
+    the fold a read needs first (the LSM's top level and absorb-all; the
+    identity here and on the table); `reset_schedule()` restarts the LSM's
+    cascade (the sharded counter's, after a collapse);
+  * the folds: `merge_batches` (the plain counter's batch histograms, as
+    count_unique_ops made them), `merge_runs` (the one-shard hand-off's
+    runs), `merge_stacked` (the routed runs as rows) and `merge_read` (one
+    deduplicated histogram into the read state: the spill recovery);
+  * `full_flag(state)`: the device flag that `finish` reads (nonzero: the
+    store is full, `FULL` says how);
+  * `counts_of(state, queries)`: int64 counts on the device, 0 if absent;
+  * `export`, `to_host`, `state_to_reference`, `state_from_reference`
+    (`reference_fields`: the JAX state's fields a checkpoint holds);
+  * `inserts`, `rounds`, `max_reprobes` and `state_stats(state)`: the
+    table's values in a counter's stats and checkpoint, 0 and empty here.
 """
 
 from __future__ import annotations
@@ -31,10 +52,12 @@ from tsxcount_tpu_torch.config import (
     KmerSpec,
 )
 from tsxcount_tpu_torch.ops.count import (
+    UniqueCounts,
     flag_ops,
     histogram_run,
     invalid_constants,
     pack_flag_key,
+    unique_run,
     unpack_flag_key,
 )
 from tsxcount_tpu_torch.ops.lanes import keys_equal, keys_less
@@ -51,7 +74,38 @@ class StoreState(NamedTuple):
     overflowed: torch.Tensor  # bool 0-d: capacity was ever exceeded
 
 
-class CountStore:
+class StoreBase:
+    """The store interface's defaults (see the module docstring): a store
+    that reads the state it folds into, and that keeps no host counts."""
+
+    reference_fields = REFERENCE_FIELDS
+    FULL = "distinct kmers exceeded the capacity"
+    inserts = rounds = max_reprobes = 0
+
+    def read_state(self, state):
+        return state
+
+    def collapse(self, state):
+        return state
+
+    def reset_schedule(self) -> None:
+        pass
+
+    def state_stats(self, state) -> dict:
+        return {}
+
+    def merge_batches(self, state, uos: list):
+        """Fold the batch histograms of count_unique_ops (ops/count.py
+        UniqueOps) as runs (`unique_run`)."""
+        return self.merge_runs(state, [unique_run(uo, self.spec)
+                                       for uo in uos])
+
+    def counts_of(self, state, queries: torch.Tensor) -> torch.Tensor:
+        """int64 [N] counts of (N, lanes) int32 keys, 0 where absent."""
+        return self.lookup(state, queries)[0]
+
+
+class CountStore(StoreBase):
     """Fixed-capacity sorted (key -> count) map on one device."""
 
     def __init__(self, spec: KmerSpec, capacity: int,
@@ -100,6 +154,15 @@ class CountStore:
         ukeys [R, P, lanes], ucounts [R, P], uvalid [R, P]) into the
         store: pack_runs, then merge_runs.  No host synchronisation."""
         return self.merge_runs(state, self.pack_runs(ukeys, ucounts, uvalid))
+
+    def merge_read(self, state: StoreState, uc: UniqueCounts) -> StoreState:
+        """Fold one deduplicated row histogram (count_unique) into the
+        store."""
+        return self.merge_stacked(state, uc.keys[None], uc.counts[None],
+                                  uc.valid[None])
+
+    def full_flag(self, state: StoreState) -> torch.Tensor:
+        return state.overflowed
 
     def pack_runs(self, ukeys: torch.Tensor, ucounts: torch.Tensor,
                   uvalid: torch.Tensor) -> list[tuple]:

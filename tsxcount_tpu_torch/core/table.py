@@ -28,6 +28,14 @@ round.  The narrow tail of an insert (`residue_phase`) resolves in plain
 PyTorch, where the lowest original index wins an empty slot, as in the JAX
 package.
 
+The widths of the rounds are the JAX package's host schedule
+(`insert_histogram`): the table, not the counter, decides them, and the
+counters reach it through the store interface of core/store.py.  A
+counter's dedupe hands the table its batch histogram as rows
+(`merge_batches`, `merge_read`) or as runs that may repeat a key, which
+the table re-dedupes with their counts as weights first (`merge_runs`,
+`merge_stacked`: the sharded counter's).
+
 The slot array is updated IN PLACE by every round, the tail and the
 renormalisation: a returned TableState shares the array of the state it
 was made from, which is no longer to be used.
@@ -47,14 +55,22 @@ from tsxcount_tpu_torch.config import (
     COUNT_DIGITS,
     KmerSpec,
 )
+from tsxcount_tpu_torch.core.store import StoreBase
 from tsxcount_tpu_torch.ops.apply import apply_sorted_unique, gather_sorted
 from tsxcount_tpu_torch.ops.compact import compact_flagged
+from tsxcount_tpu_torch.ops.count import (
+    UniqueCounts,
+    count_unique,
+    unique_rows,
+    unpack_flag_key_cols,
+)
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
 from tsxcount_tpu_torch.ops.lanes import i32, u32
 from tsxcount_tpu_torch.utils.profiling import span
 
 DEAD = 1 << 30  # dst2 of inactive rows: even, past every doubled address
 REFERENCE_FIELDS = ("slots", "n", "spilled", "probe_hist")
+_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
 
 
 class TableState(NamedTuple):
@@ -68,10 +84,18 @@ def _triangular(r):
     return (r * (r + 1)) // 2
 
 
-class QuotientTable:
+def _digit_counts(d0, d1, d2) -> torch.Tensor:
+    """int64 counts of the three base-2^20 digit columns."""
+    return (d0.to(torch.int64) + (d1.to(torch.int64) << COUNT_DIGIT_BITS)
+            + (d2.to(torch.int64) << 2 * COUNT_DIGIT_BITS))
+
+
+class QuotientTable(StoreBase):
     """2^L-slot reprobing table over GF(2)-hashed multi-lane keys."""
 
     _EXPORT_CHUNK = 1 << 20  # slots per export chunk
+    reference_fields = REFERENCE_FIELDS
+    FULL = "kmers unresolved after max_reprobes reprobes"
 
     def __init__(self, spec: KmerSpec, l_bits: int, hash_fn: GF2Hash,
                  max_reprobes: int = 64,
@@ -91,8 +115,8 @@ class QuotientTable:
         self.max_reprobes = min(max_reprobes, self.slots - 1)
         self._low_mask = (1 << l_bits) - 1
         # host counts (an owner's stats): batch histograms inserted by
-        # core/counter.py table_insert, and reprobe rounds run (split and
-        # residue rounds)
+        # insert_histogram, and reprobe rounds run (split and residue
+        # rounds); init_state restarts them
         self.inserts = self.rounds = 0
         # flat doubled element destinations must fit int32
         if 2 * self.slots * self.slot_cols >= 2**31:
@@ -109,6 +133,8 @@ class QuotientTable:
         return self.spec.lanes + COUNT_DIGITS + 1
 
     def init_state(self) -> TableState:
+        """An empty table; the host counts restart."""
+        self.inserts = self.rounds = 0
         dev = self.device
         return TableState(
             slots=torch.zeros(self.slot_cols * self.slots, dtype=torch.int32,
@@ -325,11 +351,78 @@ class QuotientTable:
         return self.renorm(TableState(slots=slots, n=n, spilled=spilled,
                                       probe_hist=hist))
 
+    def insert_histogram(self, state: TableState, uc: UniqueCounts
+                         ) -> TableState:
+        """Insert a batch histogram (keys unique where valid) with the JAX
+        package's host schedule, which decides which arbitration each row
+        meets and so the table's layout: round 0 at the narrowest of P/4,
+        P/2 (at least 256) that holds the batch's distinct keys, else P;
+        each later round at the next power of two >= the rows left (at
+        least 256); the plain tail once w * slot_cols <= 2^18 or from
+        round 6 on.  One host read of the distinct count and one of each
+        round's rows left."""
+        self.inserts += 1
+        p = uc.keys.shape[0]
+        with span("sync"):
+            n = int(uc.n_unique)
+        width = p
+        for w in (p // 4, p // 2):
+            if 256 <= w and n <= w:
+                width = w
+                break
+        st, carry, _, n_left = self.split_round(
+            state, 0, *self.round0_args(
+                uc.keys[:width], uc.counts[:width], uc.valid[:width]))
+        r = 1
+        while True:
+            with span("sync"):
+                f = int(n_left)
+            if f == 0:
+                return self.renorm(st)
+            w = min(width, max(256, 1 << (f - 1).bit_length()))
+            if w * self.slot_cols <= _RESIDUE_ELEMS or r >= 6:
+                return self.residue_phase(st, carry, r, w)
+            p0, cl, c, a = carry
+            st, carry, _, n_left = self.split_round(
+                st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
+            r += 1
+
+    merge_read = insert_histogram
+
+    def merge_batches(self, state: TableState, uos: list) -> TableState:
+        """Insert the one batch histogram of count_unique_ops (the table's
+        counters fold every batch) from its key rows."""
+        (uo,) = uos
+        return self.insert_histogram(state, unique_rows(uo, self.spec))
+
+    def merge_runs(self, state: TableState, runs: list[tuple]
+                   ) -> TableState:
+        """Insert the one-shard hand-off's one run (operands..., counts):
+        re-deduped with its counts as weights, from its operand columns."""
+        (run,) = runs
+        cols, invalid = unpack_flag_key_cols(run[:-1], self.spec)
+        return self.insert_histogram(
+            state, count_unique(cols, ~invalid, self.spec, weights=run[-1]))
+
+    def merge_stacked(self, state: TableState, ukeys: torch.Tensor,
+                      ucounts: torch.Tensor, uvalid: torch.Tensor
+                      ) -> TableState:
+        """Insert R stacked runs of rows ([R, P, lanes], [R, P], [R, P]),
+        which may hold a key more than once: re-deduped with their counts
+        as weights."""
+        return self.insert_histogram(state, count_unique(
+            ukeys.reshape(-1, self.spec.lanes), uvalid.reshape(-1),
+            self.spec, weights=ucounts.reshape(-1)))
+
+    def full_flag(self, state: TableState) -> torch.Tensor:
+        """The k-mers spilled past max_reprobes (nonzero: full)."""
+        return state.spilled
+
     def insert(self, state: TableState, ukeys: torch.Tensor,
                ucounts: torch.Tensor, uvalid: torch.Tensor) -> TableState:
         """Insert a deduplicated batch histogram (keys unique where uvalid)
-        through the plain rounds to completion.  The counter uses the
-        host-driven split rounds instead (core/counter.py _table_step)."""
+        through the plain rounds to completion.  The counters use the
+        host-driven split rounds instead (insert_histogram)."""
         pos0, cleared = self._hash_cols(ukeys)
         carry = (pos0, cleared, ucounts.to(torch.int32), uvalid)
         return self.residue_phase(state, carry, 0, ukeys.shape[0])
@@ -379,6 +472,13 @@ class QuotientTable:
 
         found = self._probe(state, queries, take)
         return out, found
+
+    def counts_of(self, state: TableState, queries: torch.Tensor
+                  ) -> torch.Tensor:
+        """int64 [N] counts of (N, lanes) int32 keys, 0 where absent: the
+        digits combined on the device."""
+        digits, found = self.lookup(state, queries)
+        return torch.where(found, _digit_counts(*digits.unbind(1)), 0)
 
     def get_positions(self, state: TableState, queries: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -435,27 +535,39 @@ class QuotientTable:
             idx = torch.nonzero(used).squeeze(1) + start
             if idx.numel() == 0:
                 continue
-            d = [self._col(state.slots, lanes + j)[idx].to(torch.int64)
+            d = [self._col(state.slots, lanes + j)[idx]
                  for j in range(COUNT_DIGITS)]
             kmer_parts.append(self._unhash(state, idx).to(device))
-            count_parts.append((d[0] + (d[1] << COUNT_DIGIT_BITS)
-                                + (d[2] << 2 * COUNT_DIGIT_BITS)).to(device))
+            count_parts.append(_digit_counts(*d).to(device))
         if not kmer_parts:
             dev = device if device is not None else state.slots.device
             return (torch.zeros((0, lanes), dtype=torch.int32, device=dev),
                     torch.zeros(0, dtype=torch.int64, device=dev))
         return torch.cat(kmer_parts), torch.cat(count_parts)
 
-    def to_host(self, state: TableState) -> tuple[np.ndarray, np.ndarray, int]:
+    def to_host(self, state: TableState, key_map=None
+                ) -> tuple[np.ndarray, np.ndarray, int]:
         """(kmer keys uint32 [n, lanes], counts int64 [n], n), used slots
         in slot order (`export`, each chunk copied to the host as it is
-        made)."""
+        made).  key_map: as CountStore's (the table's own hash is undone
+        by the export already)."""
         kmers, counts = self.export(state, device="cpu")
+        if key_map is not None and len(counts):
+            kmers = key_map.inv_apply(kmers)
         return kmers.numpy().view(np.uint32), counts.numpy(), len(counts)
 
     def fill_factor(self, state: TableState) -> float:
         """Occupancy ratio."""
         return int(state.n) / self.slots
+
+    def state_stats(self, state: TableState) -> dict:
+        """Occupancy, spilled k-mers and the reprobe-depth histogram
+        (trailing zeros trimmed)."""
+        hist = state.probe_hist.cpu().tolist()
+        while hist and hist[-1] == 0:
+            hist.pop()
+        return {"fill_factor": self.fill_factor(state),
+                "spilled": int(state.spilled), "probe_histogram": hist}
 
     # --- exchange with the JAX package's TableState ---
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import gzip
 import io
+import itertools
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
@@ -50,6 +51,11 @@ def read_fastx(path: str | Path) -> Iterator[SeqRecord]:
             yield from _read_fastq(fh)
         else:
             yield from _read_fasta(fh)
+
+
+def peek_read_lens(path: str | Path, n: int) -> list[int]:
+    """Lengths of the first `n` records (for interval-budget sizing)."""
+    return [len(rec.seq) for rec in itertools.islice(read_fastx(path), n)]
 
 
 def _read_fastq(fh) -> Iterator[SeqRecord]:

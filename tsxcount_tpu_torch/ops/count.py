@@ -22,9 +22,10 @@ exactly in `UniqueCounts.collided` for the caller to recount with the full
 sort.
 
 `count_unique_ops` hands the histogram over as kernel 1 compacted it, in
-operand columns; `histogram_run` masks those into the run that the store
-merge takes (core/store.py `merge_runs`), so a caller that folds the
-histogram straight into a store never builds the [P, lanes] key rows.
+operand columns; `histogram_run` (`unique_run`) masks those into the run
+that the store merge takes (core/store.py `merge_runs`), so a caller that
+folds the histogram straight into a store never builds the [P, lanes] key
+rows; `unique_rows` builds them for the table.
 """
 
 from __future__ import annotations
@@ -197,13 +198,8 @@ def count_unique(kmers, valid: torch.Tensor, spec: KmerSpec,
     if weights is not None:
         return _count_weighted(_flagged_ops(kmers, valid, spec), weights,
                                spec)
-    uo = count_unique_ops(kmers, valid, spec, uniform_prefix)
-    ukeys, _ = unpack_flag_key(uo.ops, spec)
-    arange = torch.arange(ukeys.shape[0], device=ukeys.device)
-    return UniqueCounts(
-        keys=ukeys, counts=uo.counts, valid=arange < uo.n_unique,
-        n_unique=uo.n_unique, collided=uo.collided,
-    )
+    return unique_rows(count_unique_ops(kmers, valid, spec, uniform_prefix),
+                       spec)
 
 
 def count_unique_ops(kmers, valid: torch.Tensor, spec: KmerSpec,
@@ -240,6 +236,24 @@ def histogram_run(ops: Sequence[torch.Tensor], counts: torch.Tensor,
     run = [torch.where(valid, op, const)
            for op, const in zip(ops, invalid_constants(spec))]
     return tuple(run) + (torch.where(valid, counts.to(torch.int32), 0),)
+
+
+def unique_rows(uo: UniqueOps, spec: KmerSpec) -> UniqueCounts:
+    """count_unique_ops' histogram as count_unique returns it: [P, lanes]
+    key rows and their validity."""
+    ukeys, _ = unpack_flag_key(uo.ops, spec)
+    arange = torch.arange(ukeys.shape[0], device=ukeys.device)
+    return UniqueCounts(
+        keys=ukeys, counts=uo.counts, valid=arange < uo.n_unique,
+        n_unique=uo.n_unique, collided=uo.collided,
+    )
+
+
+def unique_run(uo: UniqueOps, spec: KmerSpec) -> tuple:
+    """count_unique_ops' histogram as one run of the store merge: its
+    real rows through histogram_run."""
+    rows = torch.arange(uo.counts.shape[0], device=uo.counts.device)
+    return histogram_run(uo.ops, uo.counts, rows < uo.n_unique, spec)
 
 
 def _count_weighted(ops: Sequence[torch.Tensor], weights: torch.Tensor,

@@ -30,7 +30,7 @@ import time
 from pathlib import Path
 from typing import Iterator
 
-from tsxcount_tpu_torch.io.fastx import SeqRecord, read_fastx
+from tsxcount_tpu_torch.io.fastx import SeqRecord, peek_read_lens, read_fastx
 
 
 def striped_records(path: str | Path, rank: int, n_ranks: int,
@@ -78,7 +78,6 @@ def count_file_distributed(counter, path: str | Path, stride: int = 64,
     then `finish` (a collective, as every step).  Parse, pack and the copy
     to the device run on a producer thread at most `prefetch_depth`
     batches ahead.  Returns the input mode ('range' or 'stripe')."""
-    from tsxcount_tpu_torch.core.counter import _peek_read_lens
     from tsxcount_tpu_torch.io.packer import add_stats
     from tsxcount_tpu_torch.io.pipeline import prefetch
 
@@ -88,7 +87,7 @@ def count_file_distributed(counter, path: str | Path, stride: int = 64,
     mode = host_input_mode(path, n_ranks, use_native)
     # the same file head on every rank: the same interval budget
     if counter._auto_hint:
-        counter._adapt_read_len(_peek_read_lens(path))
+        counter._adapt_read_len(peek_read_lens(path, counter.HINT_SAMPLE))
     reader = None
     batches = iter(())
     if mode == "range":

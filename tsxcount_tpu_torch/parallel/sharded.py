@@ -17,10 +17,18 @@ batch on every rank:
     rows) and exchange keys, counts and lengths with one
     `all_to_all_single` each (int32 words; equal splits);
   * keep the received runs, and every `merge_every` steps fold them into
-    the shard's store: the sort backend's `CountStore.merge_stacked`
-    (kernels 2 and 3) into the flat store or the LSM's L0 (core/lsm.py;
-    absorbs: kernel 3), the table's weighted re-dedupe of the runs and an
-    insert in split rounds (kernels 5, 4 and 1).
+    the shard's store with `merge_stacked`: kernels 2 and 3 into the flat
+    store or the LSM's L0 (core/lsm.py; absorbs: kernel 3), or the
+    table's weighted re-dedupe of the runs and an insert in split rounds
+    (kernels 5, 4 and 1).
+
+Which module decides what: this counter decides the backend once, in its
+constructor, when it builds the shard's store, and owns the routing, the
+spill carry and the collectives (`_sum`, `_max`, `_gather_rows`,
+`_exchange`: each the identity at one shard with no group).  The store
+(core/store.py's interface) decides how a fold runs, what reads see and
+what "full" means; the user surface (reads, check, stats, the recount
+after a prefix collision) is core/counter.py's BaseCounter.
 
 At one shard with no spill carry the route is the identity, and a step
 takes the one-shard hand-off instead: the dedupe's compacted operand
@@ -53,9 +61,6 @@ A single sort shard otherwise stores raw keys and counts what
 
 from __future__ import annotations
 
-import dataclasses
-import itertools
-import sys
 import time
 from pathlib import Path
 from typing import Iterable, Iterator
@@ -64,47 +69,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tsxcount_tpu_torch.config import (
-    COUNT_DIGIT_BITS,
-    BatchSpec,
-    KmerSpec,
-    route_capacity,
-)
-from tsxcount_tpu_torch.core.counter import (
-    _HINT_SAMPLE,
-    _QUERY_BATCH,
-    MODE_TO_BACKEND,
-    CheckAbort,
-    CheckResult,
-    HpBonusMixin,
-    IngestProgressMixin,
-    PrefixCollision,
-    TableFull,
-    table_insert,
-)
+from tsxcount_tpu_torch.config import BatchSpec, KmerSpec, route_capacity
+from tsxcount_tpu_torch.core.counter import MODE_TO_BACKEND, BaseCounter
 from tsxcount_tpu_torch.core.lsm import LSMStore
-from tsxcount_tpu_torch.core.store import REFERENCE_FIELDS as STORE_FIELDS
 from tsxcount_tpu_torch.core.store import CountStore
-from tsxcount_tpu_torch.core.table import REFERENCE_FIELDS as TABLE_FIELDS
 from tsxcount_tpu_torch.core.table import QuotientTable
-from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats, ReadPacker
+from tsxcount_tpu_torch.io.packer import PackedBatch, PackStats
 from tsxcount_tpu_torch.ops.canonical import canonicalize, canonicalize_cols
 from tsxcount_tpu_torch.ops.count import (
     count_unique,
     count_unique_ops,
-    histogram_run,
-    unpack_flag_key_cols,
+    unique_run,
 )
 from tsxcount_tpu_torch.ops.gf2 import DEFAULT_SEED, GF2Hash
 from tsxcount_tpu_torch.ops.mix import LaneMixBijection
 from tsxcount_tpu_torch.ops.window import extract_kmer_cols, intervals_to_valid
 from tsxcount_tpu_torch.parallel.mesh import init_shard_group
-from tsxcount_tpu_torch.utils.goldenfile import read_golden
 from tsxcount_tpu_torch.utils.profiling import span
-from tsxcount_tpu_torch.utils.sequence import (
-    kmers_to_strings,
-    strings_to_kmers,
-)
+from tsxcount_tpu_torch.utils.sequence import strings_to_kmers
 
 _STATS_FIELDS = ("reads", "reads_skipped", "bases", "n_bases", "windows",
                  "batches")
@@ -128,7 +110,7 @@ def _owner_starts(owner_eff: torch.Tensor, n_shards: int) -> torch.Tensor:
     return torch.searchsorted(owner_eff, targets)
 
 
-class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
+class ShardedKmerCounter(BaseCounter):
     """KmerCounter-compatible API over a group of n_shards ranks, this
     process holding shard `rank`.  The keywords are the JAX package's, in
     its order; `device` (default: the rank's own card) takes the place of
@@ -206,12 +188,6 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         self.merge_every = max(1, merge_every) if backend == "sort" else 1
         l_local = max(1, l - max(0, n_shards.bit_length() - 1))
         cap_per_shard = max(1, (1 << l) // n_shards)
-        if backend == "table":
-            # the stream is hashed already: the shard table runs an
-            # identity mapping, and its export maps back through route_map
-            self.table = QuotientTable(
-                self.spec, l_local, GF2Hash(self.spec, identity=True),
-                max_reprobes=max_reprobes, device=self.device)
         self.capacity_factor = capacity_factor
         self.route_cap, align = route_capacity(self.batch.positions,
                                                n_shards, capacity_factor)
@@ -227,31 +203,27 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             flush_rows = self.merge_every * n_shards * self.route_cap
             auto = (cap_per_shard * (lsm_growth - 1)
                     > lsm_growth ** 2 * flush_rows)
-            self.lsm = bool((auto if lsm is None else lsm)
-                            and cap_per_shard > flush_rows * lsm_growth)
-            # the JAX package's sharded cascade: L0 one flush rounded up
-            # to the routing alignment
-            self.store = (LSMStore(self.spec, cap_per_shard, flush_rows,
-                                   lsm_growth, self.device, align=align)
-                          if self.lsm else
-                          CountStore(self.spec, cap_per_shard, self.device))
+            if ((auto if lsm is None else lsm)
+                    and cap_per_shard > flush_rows * lsm_growth):
+                # the JAX package's sharded cascade: L0 one flush rounded
+                # up to the routing alignment
+                self.store = LSMStore(self.spec, cap_per_shard, flush_rows,
+                                      lsm_growth, self.device, align=align)
+                self.lsm = True
+            else:
+                self.store = CountStore(self.spec, cap_per_shard,
+                                        self.device)
+        else:
+            # the stream is hashed already: the shard table runs an
+            # identity mapping, and its export maps back through route_map
+            self.store = self.table = QuotientTable(
+                self.spec, l_local, GF2Hash(self.spec, identity=True),
+                max_reprobes=max_reprobes, device=self.device)
         self._mix_full_sort = False  # set after a detected collision
-        self._empty = None
+        self._empty = None  # (batch spec, device buffer of an empty batch)
         self.reset()
 
     # --- state ---
-
-    def _init_state(self):
-        if self.backend == "table":
-            return self.table.init_state()
-        if self.lsm:
-            self.store.reset_schedule()
-        return self.store.init_state()
-
-    @property
-    def _read_state(self):
-        """The state that reads see (the LSM's top level)."""
-        return self.state[-1] if self.lsm else self.state
 
     def _init_carry(self):
         """Zeroed spill carry (keys, counts, rows used) a destination, or
@@ -266,48 +238,11 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
 
     def reset(self) -> None:
         """Clear all counts and ingest stats (every rank together)."""
-        self.state = self._init_state()
+        super().reset()
         self._carry = self._init_carry()
-        # [hard spill, prefix collisions] of this rank's steps since the
-        # last finish, summed over the ranks there
-        self._health = torch.zeros(2, dtype=torch.int64, device=self.device)
         self._spill_recovered = 0
         self._route_direct_batches = 0  # this rank's one-shard hand-offs
-        if self.backend == "table":
-            self.table.inserts = self.table.rounds = 0
-        self.packer = self._new_packer()
-        # this rank's reads that took the native parser's one-pass path
-        self.parse_fast_reads = 0
         self._pending: list[PackedBatch] = []
-        self._pending_recv: list[tuple] = []
-        self.batches_processed = 0
-        self.elapsed = 0.0
-        self._progress_t0 = None
-        self._progress_last = 0
-
-    def _new_packer(self) -> ReadPacker:
-        return ReadPacker(self.batch, n_policy=self.n_policy, seed=self.seed,
-                          collapse=self.collapse_hp)
-
-    def _adapt_read_len(self, read_lens) -> None:
-        """One-shot sizing of the interval budget (KmerCounter's twin).
-        The exchanged shapes depend on the positions only, so ranks that
-        size it differently still exchange alike."""
-        if not self._auto_hint:
-            return
-        self._auto_hint = False
-        lens = [int(x) for x in read_lens]
-        if not lens:
-            return
-        hint = max(self.spec.k, min(lens))
-        new_batch = dataclasses.replace(self.batch, read_len_hint=hint)
-        if new_batch.max_intervals == self.batch.max_intervals:
-            return
-        self.batch = new_batch
-        self._empty = None
-        stats = self.packer.stats
-        self.packer = self._new_packer()
-        self.packer.stats = stats
 
     # --- collectives (local where one shard runs with no group) ---
 
@@ -320,8 +255,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             # of the state)
             t = t.clone()
             dist.all_reduce(t)
-        with span("sync"):
-            return t.tolist()
+        return super()._sum(t)
 
     def _max(self, value: int) -> int:
         if not self.group.joined:
@@ -375,17 +309,13 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
 
     # --- the routing step ---
 
-    def _put(self, pb: PackedBatch) -> torch.Tensor:
-        # words and validity intervals ride ONE buffer: one copy a batch
-        with span("put"):
-            return torch.from_numpy(pb.buf.view(np.int32)).to(self.device)
-
     def _empty_buf(self) -> torch.Tensor:
         """The device buffer of an empty batch, which a rank short of
         batches steps in a round."""
-        if self._empty is None:
-            self._empty = self._put(PackedBatch.empty(self.batch))
-        return self._empty
+        if self._empty is None or self._empty[0] != self.batch:
+            self._empty = (self.batch,
+                           self._put(PackedBatch.empty(self.batch)))
+        return self._empty[1]
 
     @property
     def _prefix_sort(self) -> bool:
@@ -417,9 +347,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         if uo.collided is not None:
             self._health[1] += uo.collided.to(torch.int64)
         self._route_direct_batches += 1
-        rows = torch.arange(uo.counts.shape[0], device=buf.device)
-        return histogram_run(uo.ops, uo.counts, rows < uo.n_unique,
-                             self.spec)
+        return unique_run(uo, self.spec)
 
     def _route(self, buf: torch.Tensor):
         """One batch: extract -> (canonical) -> hash -> dedupe -> slices
@@ -469,58 +397,30 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         received runs every merge_every steps."""
         route = self._route_direct if self._direct_route else self._route
         with span("step"):
-            self._pending_recv.append(route(buf))
+            self._to_fold.append(route(buf))
         self.batches_processed += self.n_shards
         self._maybe_progress(getattr(self, "_live_stats_fn", None))
-        if len(self._pending_recv) >= self.merge_every:
+        if len(self._to_fold) >= self.merge_every:
             self._flush_merges()
 
     # --- folding into the shard store ---
 
     def _flush_merges(self, force: bool = False) -> None:
-        pend = self._pending_recv
+        pend = self._to_fold
         if not pend or (len(pend) < self.merge_every and not force):
             return
-        self._pending_recv = []
+        self._to_fold = []
         with span("fold"):
-            if self._direct_route:
-                self._fold_runs(pend)
+            if self._direct_route:  # the hand-off's runs, as they are
+                self.state = self.store.merge_runs(self.state, pend)
                 return
             keys = torch.cat([p[0] for p in pend])      # [R*n, cap, lanes]
             counts = torch.cat([p[1] for p in pend])    # [R*n, cap]
             lens = torch.cat([p[2] for p in pend])      # [R*n]
             valid = (torch.arange(self.route_cap, device=self.device)
                      < lens[:, None])
-            if self.backend == "sort":
-                # the flat store, or the LSM's L0 and its cascade
-                self.state = self.store.merge_stacked(self.state, keys,
-                                                      counts, valid)
-                return
-            # the table: re-dedupe the runs with their counts as weights
-            uc = count_unique(keys.reshape(-1, self.spec.lanes),
-                              valid.reshape(-1), self.spec,
-                              weights=counts.reshape(-1))
-            self.state = table_insert(self.table, self.state, uc)
-
-    def _fold_runs(self, runs: list[tuple]) -> None:
-        """Fold the one-shard hand-off's runs: the sort backend merges
-        them into the store (or the LSM's L0) as they are; the table
-        re-dedupes its one run (merge_every is 1) with its counts as
-        weights, from the run's operand columns."""
-        if self.backend == "sort":
-            self.state = self.store.merge_runs(self.state, runs)
-            return
-        (run,) = runs
-        cols, invalid = unpack_flag_key_cols(run[:-1], self.spec)
-        uc = count_unique(cols, ~invalid, self.spec, weights=run[-1])
-        self.state = table_insert(self.table, self.state, uc)
-
-    def _collapse_lsm(self) -> None:
-        """Absorb every LSM level into the top one (reads see one store);
-        the cascade restarts, as the JAX sharded counter's does."""
-        if self.lsm:
-            self.state = self.store.collapse(self.state)
-            self.store.reset_schedule()
+            self.state = self.store.merge_stacked(self.state, keys, counts,
+                                                  valid)
 
     def _recover_spill(self) -> None:
         """Exchange the spill carry as a step exchanges its slices,
@@ -535,16 +435,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             lanes = self.spec.lanes
             uc = count_unique(rk.reshape(-1, lanes), valid.reshape(-1),
                               self.spec, weights=rc.reshape(-1))
-            if self.backend == "table":
-                self.state = table_insert(self.table, self.state, uc)
-            elif self.lsm:  # into the top level, as the JAX package does
-                self.state[-1] = self.store.levels[-1].merge_stacked(
-                    self.state[-1], uc.keys[None], uc.counts[None],
-                    uc.valid[None])
-            else:
-                self.state = self.store.merge_stacked(
-                    self.state, uc.keys[None], uc.counts[None],
-                    uc.valid[None])
+            self.state = self.store.merge_read(self.state, uc)
             self._carry = self._init_carry()
 
     # --- ingestion ---
@@ -569,12 +460,7 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
         """Pack and count this rank's reads.  With several ranks this is a
         collective: every rank calls it (a rank without reads with an
         empty iterable), and the steps run in one round at its end."""
-        reads = iter(reads)
-        if self._auto_hint:
-            sample = list(itertools.islice(reads, _HINT_SAMPLE))
-            self._adapt_read_len(len(s) for s in sample)
-            reads = itertools.chain(sample, reads)
-        for seq in reads:
+        for seq in self._hinted(reads):
             self._pending.extend(self.packer.feed(seq))
             if self.n_shards == 1:
                 self._dispatch_pending()
@@ -593,74 +479,28 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
                 self._recover_spill()
                 self._spill_recovered += carry_n
 
-    def finish(self) -> None:
-        """flush, then every rank's capacity, spill and collision flags in
-        one all_reduce: every rank raises the same error."""
-        self.flush()
-        if self.backend == "table":
-            full = self.state.spilled
-        else:
-            levels = self.state if self.lsm else [self.state]
-            full = torch.stack([st.overflowed for st in levels]).any()
-        over, spill, taint = self._sum(
-            torch.cat([full.to(torch.int64).reshape(1), self._health]))
-        self._health.zero_()
-        if over:
-            what = ("unresolved reprobes" if self.backend == "table"
-                    else "capacity overflow")
-            raise TableFull(f"{what} in a table shard; rerun with larger --l")
-        if spill:
-            raise TableFull(
-                f"{spill} routed kmers overflowed both the per-destination "
-                f"capacity {self.route_cap} and the spill carry; increase "
-                f"capacity_factor")
-        if taint:
-            raise PrefixCollision(PrefixCollision.__doc__)
-
-    def count_file(self, path: str | Path,
-                   use_native: bool | None = None) -> None:
-        """Count a FASTQ/FASTA(.gz) file, each rank its share of it
-        (parallel/distributed.py).  A detected dedupe-prefix collision,
-        which every rank sees (the flags are summed), recounts the file
-        with the full sort when the counter held no earlier data."""
+    def _count_file(self, path: str | Path,
+                    use_native: bool | None) -> None:
+        """This rank's share of the file (parallel/distributed.py)."""
         from tsxcount_tpu_torch.parallel.distributed import (
             count_file_distributed,
         )
 
-        fresh = (self.batches_processed == 0
-                 and self._global_stats().reads == 0)
-        try:
-            count_file_distributed(self, path, use_native=use_native)
-        except PrefixCollision:
-            if not fresh:
-                raise
-            print("tsxcount: dedupe-prefix collision detected; recounting "
-                  "with the full-comparator sort (exact)", file=sys.stderr)
-            self._mix_full_sort = True
-            self.reset()
-            count_file_distributed(self, path, use_native=use_native)
+        count_file_distributed(self, path, use_native=use_native)
 
-    # --- queries and export (collectives) ---
+    # --- reads (BaseCounter's; collectives) ---
 
     def _prepare(self) -> None:
+        """Fold the pending runs, then absorb every LSM level into the top
+        one (reads see one store); the cascade restarts, as the JAX
+        sharded counter's does."""
         self._flush_merges(force=True)
-        self._collapse_lsm()
+        self.state = self.store.collapse(self.state)
+        self.store.reset_schedule()
 
-    @property
-    def distinct(self) -> int:
-        self._prepare()
-        return self._sum(self._read_state.n.reshape(1))[0]
-
-    @property
-    def total_kmers(self) -> int:
-        st = self._global_stats()
-        return st.windows + sum(st.hp_bonus)
-
-    def get_counts(self, kmers: list[str]) -> list[int]:
-        """Exact counts (0 if absent): each rank looks the keys up in its
-        shard, one all_reduce(SUM) joins the answers."""
-        if not kmers:
-            return []
+    def _query_keys(self, kmers: list[str]) -> torch.Tensor:
+        """The stored form of the query k-mers on this rank's device; each
+        rank looks them up in its shard, and `_sum` joins the answers."""
         self._prepare()
         keys = torch.from_numpy(
             strings_to_kmers(kmers, self.spec).view(np.int32)).to(self.device)
@@ -668,92 +508,28 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
             keys = canonicalize(keys, self.spec)
         if self.hashed_store:
             keys = self.route_map.apply(keys)
-        out: list[int] = []
-        for off in range(0, len(kmers), _QUERY_BATCH):
-            q = keys[off : off + _QUERY_BATCH]
-            if self.backend == "sort":
-                counts, _ = self.store.lookup(self.state, q)
-            else:
-                digits, found = self.table.lookup(self.state, q)
-                d = digits.to(torch.int64)
-                counts = torch.where(
-                    found, d[:, 0] + (d[:, 1] << COUNT_DIGIT_BITS)
-                    + (d[:, 2] << 2 * COUNT_DIGIT_BITS), 0)
-            if self.group.joined:
-                dist.all_reduce(counts)
-            out.extend(counts.cpu().tolist())
-        owed = self._hp_owed_query()
-        if owed:
-            out = [c + owed.get(s, 0) for s, c in zip(kmers, out)]
-        return out
+        return keys
 
     def _shard_export(self) -> tuple[torch.Tensor, torch.Tensor]:
         """This shard's (stored keys int32 [n, lanes], counts int64 [n])
         on its device: hashed keys where the store holds images."""
-        if self.backend == "table":
-            return self.table.export(self.state)
         return self.store.export(self.state)
 
-    def items(self) -> Iterator[tuple[str, int]]:
-        """Stream (kmer string, count), shard after shard (each ascending
-        by stored key, or the table's slot order), on every rank: each
-        shard's rows are gathered to every rank and mapped back through
-        the routing bijection on the device."""
-        self._prepare()
+    def _export_parts(self) -> Iterator[tuple]:
+        """Each shard's rows, gathered to every rank and mapped back
+        through the routing bijection on the device."""
         keys, counts = self._shard_export()
-        owed = self._hp_owed_emit()
         for k_sh, c_sh in zip(self._gather_rows(keys),
                               self._gather_rows(counts)):
             if self.hashed_store and k_sh.shape[0]:
                 k_sh = self.route_map.inv_apply(k_sh)
-            strings = kmers_to_strings(k_sh.cpu().numpy().view(np.uint32),
-                                       self.spec)
-            for kmer_str, cnt in zip(strings, c_sh.cpu().tolist()):
-                yield kmer_str, cnt + owed.pop(kmer_str, 0)
-        for kmer_str, cnt in sorted(owed.items()):
-            if cnt:  # owed keys the store never saw (see HpBonusMixin)
-                yield kmer_str, cnt
+            yield k_sh.cpu().numpy().view(np.uint32), c_sh.cpu()
 
-    def to_dict(self) -> dict[str, int]:
-        return dict(self.items())
-
-    def check(self, golden_path: str | Path, abort: bool = False,
-              max_report: int = 20) -> CheckResult:
-        """Verify counts against a `kmer\\tcount` golden file (every rank
-        reads it and sees the same result)."""
-        golden = read_golden(golden_path)
-        res = CheckResult()
-        kmers = list(golden.keys())
-        for kmer_str, got in zip(kmers, self.get_counts(kmers)):
-            want = golden[kmer_str]
-            res.n_checked += 1
-            if got == want:
-                res.n_matched += 1
-                continue
-            target = res.missing if got == 0 else res.mismatches
-            if len(target) < max_report:
-                target.append((kmer_str, want, got))
-            if abort:
-                raise CheckAbort(f"count mismatch for {kmer_str}: expected "
-                                 f"{want}, got {got}")
-        res.extra_distinct = max(0, self.distinct - len(golden))
-        return res
-
-    def stats(self) -> dict:
-        table = self.backend == "table"
-        st = dataclasses.asdict(self._global_stats())
-        st = {"reads": st["reads"], "parse_fast_reads": self.parse_fast_reads,
-              **st}
+    def _own_stats(self) -> dict:
         self._prepare()
         ns = torch.cat(self._gather_rows(
-            self._read_state.n.reshape(1))).cpu().numpy()
-        st.update(
-            backend=self.backend,
-            k=self.spec.k,
-            l=self.l,
-            lanes=self.spec.lanes,
-            lsm=self.lsm,
-            device=str(self.device),
+            self.store.read_state(self.state).n.reshape(1))).cpu().numpy()
+        return dict(
             n_shards=self.n_shards,
             distinct_kmers=int(ns.sum()),
             total_kmers=self.total_kmers,
@@ -764,34 +540,4 @@ class ShardedKmerCounter(HpBonusMixin, IngestProgressMixin):
                                   4),
             spill_recovered=self._spill_recovered,
             route_direct_batches=self._route_direct_batches,
-            table_inserts=self.table.inserts if table else 0,
-            table_rounds=self.table.rounds if table else 0,
         )
-        return st
-
-    def print_stats(self) -> None:
-        for key, val in self.stats().items():
-            print(f"{key}: {val}")
-
-    # --- checkpoints (core/checkpoint.py) ---
-
-    @property
-    def _reference_fields(self) -> tuple[str, ...]:
-        return TABLE_FIELDS if self.backend == "table" else STORE_FIELDS
-
-    def _shard_reference(self) -> dict[str, np.ndarray]:
-        """This shard's read state as the JAX package's state fields
-        (numpy).  Folds every pending batch, run and carry first.
-        Collective."""
-        self.flush()
-        self._collapse_lsm()
-        if self.backend == "table":
-            return self.table.state_to_reference(self.state)
-        return self.store.state_to_reference(self.state)
-
-    def _load_shard_reference(self, ref) -> None:
-        """Replace this shard's counts with a JAX package state of one
-        shard (numpy fields; the LSM's top level)."""
-        self._pending_recv = []
-        owner = self.table if self.backend == "table" else self.store
-        self.state = owner.state_from_reference(ref)
