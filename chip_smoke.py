@@ -170,6 +170,10 @@ from tsxcount_tpu_torch.ops.merge_dedupe import (  # noqa: E402
 )
 from tsxcount_tpu_torch.config import KmerSpec  # noqa: E402
 from tsxcount_tpu_torch.ops.lanes import lexsort_perm  # noqa: E402
+from tsxcount_tpu_torch.ops.table_residue import (  # noqa: E402
+    table_residue,
+    table_residue_plain,
+)
 from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
     LaneMixBijection,
     lane_mix,
@@ -217,7 +221,13 @@ KERNELS = {
     # no Pallas kernel: LaneMixBijection._apply_cols, which XLA fuses
     "lane_mix": ("tsxcount_tpu_torch/csrc/lane_mix.cu",
                  "tsxcount_tpu/ops/mix.py:255"),
+    # no Pallas kernel: the XLA ops of QuotientTable.residue_phase
+    "table_residue": ("tsxcount_tpu_torch/csrc/table_residue.cu",
+                      "tsxcount_tpu/core/table.py:418"),
 }
+# table_residue's tails at table-k14's shape: (rows, r_start); the first
+# is the kernels line's, the cells' widest at their usual round
+RESIDUE_TAILS = ((16384, 3), (4096, 2), (8192, 4), (65536, 4))
 WIDE_RUNS = ((31, None), (63, None), (127, None), (256, None),
              (127, False))  # (k, hash_first) of phase 6's sort counts
 WIDE_L = 25                 # 2^25 store rows: every k's distinct fits
@@ -1062,9 +1072,16 @@ def table_end_to_end(path: Path, want_keys, want_counts) -> dict:
         if launches[name] != len(widths):
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"in {len(widths)} split rounds")
+    # every tail of an insert is one launch of the residue kernel
+    tails = counter.table.residue_launches
+    if not 0 < launches["table_residue"] == tails:
+        raise AssertionError(f"table_residue launched "
+                             f"{launches['table_residue']} times in {tails} "
+                             f"tails")
     phase("e2e_table", run="cold", split_rounds=len(widths),
           apply_sorted_unique_launches=launches["apply_sorted_unique"],
-          gather_sorted_launches=launches["gather_sorted"])
+          gather_sorted_launches=launches["gather_sorted"],
+          table_residue_launches=launches["table_residue"])
     check_queries(counter, want_keys, want_counts)
     counter.reset()
     widths.clear()
@@ -1157,6 +1174,125 @@ def check_lane_mix(results: dict) -> None:
     # no single PyTorch call computes the mix: library_ms is null
     results["lane_mix"] = dict(max_abs_err=worst, library_ms=None,
                                extra=extra, **timing)
+
+
+def residue_table() -> tuple:
+    """(table, state) of the table-k14 configuration at its 2^26 slots
+    (its hash seed, 64 reprobes), a fifth of the slots used by random
+    keys with random counts, as a tail of a job finds them."""
+    from tsxcount_tpu_torch import GF2Hash, QuotientTable
+
+    spec = KmerSpec(K)
+    t = QuotientTable(spec, 26, GF2Hash(spec, seed=31836), max_reprobes=64,
+                      device=DEV)
+    st = t.init_state()
+    g = torch.Generator(device=DEV)
+    g.manual_seed(21)
+    used = torch.rand(t.slots, device=DEV, generator=g) < 0.2
+    st.slots[: t.slots] = torch.randint(
+        -2**31, 2**31, (t.slots,), dtype=torch.int32, device=DEV,
+        generator=g) & ~t._low_mask
+    for c in range(spec.lanes, spec.lanes + 3):
+        t._col(st.slots, c).copy_(torch.randint(
+            0, 1 << 20, (t.slots,), dtype=torch.int32, device=DEV,
+            generator=g) * used)
+    t._col(st.slots, t.slot_cols - 1).copy_(used.to(torch.int32))
+    return t, st
+
+
+def residue_carry(t, g: torch.Generator, rows: int, repeat=None) -> tuple:
+    """A tail's compacted carry of `rows` rows, 70 % of them active:
+    unique random 14-mers in random order (a share of them `repeat`'s
+    when given, so they match), counts up to 2^22 (so the second digit is
+    not 0).  Returns (carry, keys)."""
+    keys = torch.randint(0, 4**K, (2 * rows,), dtype=torch.int32,
+                         device=DEV, generator=g).unique()
+    if repeat is not None:
+        old = repeat[: rows // 2]
+        keys = torch.cat([old, keys[~torch.isin(keys, old)]])
+    keys = keys[torch.randperm(keys.numel(), device=DEV, generator=g)][:rows]
+    pos0, cleared = t._hash_cols(keys[:, None])
+    counts = torch.randint(1, 1 << 22, (rows,), dtype=torch.int32,
+                           device=DEV, generator=g)
+    active = torch.arange(rows, device=DEV) < int(0.7 * rows)
+    return (pos0, cleared, counts, active), keys
+
+
+def residue_bytes(rows_in: list, resolved: int, won: int, lanes: int,
+                  width: int) -> int:
+    """Least bytes of a tail: the active flags once; in each round an
+    entering row's pos0, key lanes, its slot's key lanes and used word; a
+    resolved row's count and its slot's two digit words (read and
+    written); a winner's key lanes and used word written."""
+    per_probe = 4 + 4 * lanes + 4 * (lanes + 1)
+    return (width + sum(rows_in) * per_probe + resolved * (4 + 16)
+            + won * 4 * (lanes + 1))
+
+
+def check_table_residue(results: dict) -> None:
+    """The residue kernel against its plain rounds at table-k14's shape
+    (the 2^26-slot table a fifth full): tails of 4-64K rows from rounds
+    2-4, each carry inserted twice in turn (the second carry holds half
+    the first's keys, so rows also match): slots, n, spilled, probe_hist
+    and the rounds run word for word after each.  Timed on fresh carries
+    (device time of the one launch against the plain rounds' wall between
+    the same events, host syncs included), beside a bound from the
+    checked run's bytes."""
+    t, st = residue_table()
+    g = torch.Generator(device=DEV)
+    g.manual_seed(4)
+    lanes = t.spec.lanes
+    worst, extra, timing = 0, {}, None
+    for rows, r0 in RESIDUE_TAILS:
+        got = [st.slots.clone(), st.n, st.spilled, st.probe_hist]
+        want = [st.slots.clone(), st.n, st.spilled, st.probe_hist]
+        keys = None
+        for turn in range(2):
+            carry, keys = residue_carry(t, g, rows, keys)
+            rounds = torch.zeros((), dtype=torch.int64, device=DEV)
+            hist0 = got[3]
+            got[1:] = table_residue(got[0], t.slots, carry, r0, rows,
+                                    t.max_reprobes, *got[1:], rounds)
+            *w, k = table_residue_plain(want[0], t.slots, carry, r0, rows,
+                                        t.max_reprobes, *want[1:])
+            want[1:] = w
+            err = max(max_err([a.reshape(-1) for a in got],
+                              [b.reshape(-1) for b in want]),
+                      abs(int(rounds) - k))
+            worst = max(worst, err)
+            resolved_r = (got[3] - hist0).tolist()
+            active = int(carry[3].sum())
+            rows_in, left = [], active
+            for r in range(r0, r0 + k):
+                rows_in.append(left)
+                left -= resolved_r[min(r, len(resolved_r) - 1)]
+            phase("kernel", name="table_residue", rows=rows, r_start=r0,
+                  turn=turn, active=active, rounds=k, rounds_kernel=int(
+                      rounds), spilled=int(got[2]), max_abs_err=err)
+            if turn == 0:
+                won = int(got[1] - st.n)
+                n_bytes = residue_bytes(rows_in, active - left, won, lanes,
+                                        rows)
+        del got, want
+        fresh = iter([residue_carry(t, g, rows)[0] for _ in range(12)])
+        tail_st = [st.slots.clone(), st.n, st.spilled, st.probe_hist]
+        rounds = torch.zeros((), dtype=torch.int64, device=DEV)
+        ms = cuda_ms(lambda: table_residue(tail_st[0], t.slots, next(fresh),
+                                           r0, rows, t.max_reprobes,
+                                           *tail_st[1:], rounds))
+        plain_ms = cuda_ms(lambda: table_residue_plain(
+            tail_st[0], t.slots, next(fresh), r0, rows, t.max_reprobes,
+            *tail_st[1:]))
+        del tail_st
+        bound = bytes_ms(n_bytes)
+        if timing is None:
+            timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound)
+        extra.update({f"ms_{rows}_r{r0}": ms, f"plain_ms_{rows}_r{r0}":
+                      plain_ms, f"bound_ms_{rows}_r{r0}": bound})
+    del st
+    # no single PyTorch call runs the rounds: library_ms is null
+    results["table_residue"] = dict(max_abs_err=worst, library_ms=None,
+                                    extra=extra, **timing)
 
 
 def wide_sorted(n: int, n_keys: int, g: torch.Generator,
@@ -2481,6 +2617,7 @@ def main() -> int:
     check_apply_kernels(results)
     check_lane_mix(results)
     check_wide_kernels(results)
+    check_table_residue(results)
     check_errors(results)
     t0 = time.perf_counter()
     want_keys, want_counts = host_count(path, K)

@@ -718,3 +718,102 @@ def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
     rec["jobs"] = 1
     share = run.load_metric(metric).read(rec)
     assert share is not None and 0 < share <= 100, share
+
+
+def _table_k14(dev, l_bits=26):
+    """The table of the benchmark's table-k14 configuration: k = 14, its
+    hash seed and 64 reprobes, here at 2^l_bits slots."""
+    from tsxcount_tpu_torch import GF2Hash, QuotientTable
+
+    spec = KmerSpec(14)
+    return QuotientTable(spec, l_bits, GF2Hash(spec, seed=31836),
+                         max_reprobes=64, device=dev)
+
+
+def test_residue_kernel_matches_plain_rounds_at_the_cells_shape(dev,
+                                                                monkeypatch):
+    """table-k14's 2^26-slot table fed two synth-long-like batch histograms
+    (2^24 positions, ~9.4M valid windows drawn from 12M keys, a polyA key
+    counted past 2^20; the second batch repeats most of the first's keys)
+    through insert_histogram's whole schedule, once with the residue phase
+    in the kernel and once in the plain rounds (table_residue_plain in the
+    kernel wrapper's place): the two states word for word, and the same
+    rounds run."""
+    from tsxcount_tpu_torch import _build
+    from tsxcount_tpu_torch.core import table as table_mod
+    from tsxcount_tpu_torch.ops.count import count_unique
+    from tsxcount_tpu_torch.ops.table_residue import table_residue_plain
+
+    def plain_rounds(*args):
+        *out, k = table_residue_plain(*args[:-1])
+        args[-1].add_(k)
+        return tuple(out)
+
+    spec = KmerSpec(14)
+    rng = np.random.default_rng(21)
+    n_pos, n_valid = 1 << 24, 9_400_000
+    hists = []
+    for _ in range(2):
+        keys = rng.integers(0, 12_000_000, n_pos) * 22  # distinct 14-mers
+        keys[rng.random(n_pos) < 0.12] = 0  # the polyA tails
+        valid = np.arange(n_pos) < n_valid
+        hists.append(count_unique(_t(keys.astype(np.int32)[:, None], dev),
+                                  _t(valid, dev), spec))
+    out = []
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(table_mod, "table_residue", plain_rounds)
+        _build.reset_launch_counts()
+        t = _table_k14(dev)
+        st = t.init_state()
+        for uc in hists:
+            st = t.insert_histogram(st, uc)
+        out.append((t, st, _build.launch_counts()["table_residue"]))
+        del st
+    (tk, sk, lk), (tp, sp, lp) = out
+    assert torch.equal(sk.slots, sp.slots)
+    for a, b in zip(sk[1:], sp[1:]):
+        assert torch.equal(a, b)
+    assert int(sk.spilled) == 0 and int(sk.n) > 8_000_000
+    assert tk.rounds == tp.rounds > tk.inserts
+    assert lk == tk.residue_launches == tp.residue_launches >= 1 and lp == 0
+
+
+@pytest.mark.parametrize("width", [30_000, 300_000])
+def test_residue_phase_makes_one_launch_and_no_host_sync(dev, width):
+    """One residue_phase call from round 0 at `width` rows (one chunk of
+    the kernel's 2^16 rows, and five), half of whose keys the table holds,
+    under torch.cuda.set_sync_debug_mode("error"): it raises on any host
+    sync.  One launch of the kernel and of no other port kernel; the state
+    equals the plain rounds'."""
+    from tsxcount_tpu_torch import _build
+    from tsxcount_tpu_torch.core.table import TableState
+    from tsxcount_tpu_torch.ops.table_residue import table_residue_plain
+
+    t = _table_k14(dev, l_bits=20)
+    rng = np.random.default_rng(5)
+    keys = np.unique(rng.integers(0, 4**14, width + width // 10))[:width]
+    keys = _t(rng.permutation(keys).astype(np.int32)[:, None], dev)
+    counts = _t(rng.integers(1, 1 << 22, width).astype(np.int32), dev)
+    valid = torch.ones(width, dtype=torch.bool, device=dev)
+    st = t.insert(t.init_state(), keys[::2], counts[::2], valid[::2])
+    pos0, cleared = t._hash_cols(keys)
+    carry = (pos0, cleared, counts, valid)
+    plain = TableState(st.slots.clone(), st.n, st.spilled, st.probe_hist)
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t.residue_phase(st, carry, 0, width)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = _build.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"table_residue": 1}
+    n, spilled, hist, _ = table_residue_plain(
+        plain.slots, t.slots, carry, 0, width, t.max_reprobes, plain.n,
+        plain.spilled, plain.probe_hist)
+    want = t.renorm(TableState(plain.slots, n, spilled, hist))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got.n) == width and int(got.spilled) == 0

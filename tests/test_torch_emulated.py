@@ -26,5 +26,5 @@ def test_emulated_kernels_match_plain_versions():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     for name in ("compact_flagged", "merge_sorted", "merge_dedupe_sorted",
                  "merge out of order", "apply_sorted_unique",
-                 "gather_sorted", "lane_mix"):
+                 "gather_sorted", "lane_mix", "table_residue"):
         assert f"{name}: ok" in proc.stdout

@@ -283,7 +283,7 @@ def test_nvcc_command_targets_sm90a_in_ignored_build_dir():
     assert out.parent == _build.BUILD_DIR and _gitignored(out)
     srcs = {pathlib.Path(a).name for a in cmd if a.endswith(".cu")}
     assert srcs == {"apply.cu", "compact.cu", "lane_mix.cu", "merge.cu",
-                    "merge_dedupe.cu"}
+                    "merge_dedupe.cu", "table_residue.cu"}
 
 
 def test_native_parser_built_from_source_into_ignored_dir():

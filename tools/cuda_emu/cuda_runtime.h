@@ -130,7 +130,9 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 
 // A read-only (non-coherent cache) load on the card: a plain load here.
 template <class T>
@@ -141,4 +143,14 @@ T __ldg(const T* p) {
 template <class T>
 T atomicAdd(T* p, T v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+
+template <class T>
+T atomicMax(T* p, T v) {
+  T old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
 }

@@ -41,6 +41,9 @@ from tsxcount_tpu_torch.ops.mix import (  # noqa: E402
     LaneMixBijection,
     lane_mix_plain,
 )
+from tsxcount_tpu_torch.ops.table_residue import (  # noqa: E402
+    table_residue_plain,
+)
 
 HERE = Path(__file__).resolve().parent
 OUT = _build.BUILD_DIR / "emu"
@@ -73,27 +76,132 @@ def rewrite_launches(src: str) -> str:
     return src
 
 
-def build() -> ctypes.CDLL:
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(sources=None, out: Path = OUT) -> ctypes.CDLL:
+    """The emulated library of `sources` (default: every kernel source),
+    built in `out`, its entry points bound as the real library's: every
+    one of them when every source is built, those it has otherwise."""
+    out.mkdir(parents=True, exist_ok=True)
     objs = []
     for f in sorted(_build.CSRC.iterdir()):
-        (OUT / f.name).write_text(rewrite_launches(f.read_text()))
-    for f in _build.sources():
-        obj = OUT / (f.stem + ".o")
+        (out / f.name).write_text(rewrite_launches(f.read_text()))
+    for f in sources or _build.sources():
+        obj = out / (f.stem + ".o")
         subprocess.run(
             ["g++", "-std=c++20", "-O1", "-fPIC", f"-I{HERE}", "-x", "c++",
-             "-Wno-unknown-pragmas", "-c", str(OUT / f.name), "-o", str(obj)],
+             "-Wno-unknown-pragmas", "-c", str(out / f.name), "-o", str(obj)],
             check=True,
         )
         objs.append(str(obj))
-    lib_path = OUT / "libtsxemu.so"
+    lib_path = out / "libtsxemu.so"
     subprocess.run(["g++", "-shared", "-o", str(lib_path), *objs,
                     "-lpthread"], check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, (res, args) in _build._SIGNATURES.items():
+        if sources and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = res, args
     return lib
+
+
+# The table's residue phase: (id, key lanes, log2 slots, rows, width2,
+# r_start, max_reprobes, distinct probe starts or 0 for any, share of the
+# slots used before, counts up to).  Each case inserts two batches, the
+# second holding half the first's keys, so rows also match.
+RESIDUE_CASES = [
+    ("contention-2^8", 1, 8, 600, 600, 0, 16, 3, 0.2, 100),
+    ("contention-2^10", 1, 10, 1500, 1500, 2, 24, 8, 0.3, 100),
+    ("lost-past-width2", 1, 13, 3000, 2000, 2, 64, 0, 0.3, 100),
+    ("spills-last-bin", 1, 10, 2000, 2000, 0, 5, 0, 0.9, 100),
+    ("spills-one-round", 1, 10, 2000, 2000, 4, 5, 0, 0.9, 100),
+    ("no-round", 1, 10, 500, 500, 5, 5, 0, 0.5, 100),
+    ("r_start-6", 2, 15, 4000, 4000, 6, 64, 0, 0.5, 100),
+    ("counts-2^20-up", 2, 13, 2500, 2500, 2, 64, 0, 0.4, 2**32),
+    ("lanes-16", 16, 12, 1500, 1500, 0, 64, 0, 0.3, 2**21),
+    ("one-chunk", 1, 18, 1 << 16, 1 << 16, 0, 64, 0, 0.3, 2**21),
+    ("two-chunks", 1, 18, 70_000, 70_000, 0, 64, 0, 0.3, 2**21),
+]
+
+
+def residue_case(case, seed: int = 0):
+    """(slots, n_slots, carries, r_start, width2, max_reprobes) of a
+    case: a table with a share of its slots used by random keys and two
+    carries of unique keys (pos0, cleared lanes), the second holding half
+    the first's keys."""
+    _, lanes, l_bits, rows, width2, r_start, max_reprobes, starts, used, \
+        top = case
+    rng = np.random.default_rng(seed)
+    s, cols = 1 << l_bits, lanes + 4
+    low = (1 << l_bits) - 1
+    slots = np.zeros((cols, s), dtype=np.uint32)
+    full = rng.random(s) < used
+    slots[:lanes, full] = rng.integers(0, 2**32, (lanes, int(full.sum())),
+                                       dtype=np.uint32)
+    slots[0, full] = (slots[0, full] & ~np.uint32(low)) | rng.integers(
+        0, 8, int(full.sum()), dtype=np.uint32)
+    slots[lanes : lanes + 3, full] = rng.integers(
+        0, 1 << 20, (3, int(full.sum())), dtype=np.uint32)
+    slots[-1, full] = 1
+
+    def keys(k):
+        pos0 = (rng.integers(0, starts, k) * (s // starts) if starts
+                else rng.integers(0, s, k)).astype(np.uint32)
+        cl = rng.integers(0, 2**32, (lanes, k), dtype=np.uint32)
+        cl[0] &= ~np.uint32(low)
+        return np.concatenate([pos0[None], cl])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+    first = keys(rows)
+    second = np.concatenate([first[:, rng.permutation(rows)[: rows // 2]],
+                             keys(rows - rows // 2)], axis=1)
+    carries = []
+    for kk in (first, second):
+        kk = np.unique(kk, axis=1)  # unique keys, in no particular order
+        kk = kk[:, rng.permutation(kk.shape[1])]
+        k = kk.shape[1]
+        counts = rng.integers(1, top, k, dtype=np.uint64).astype(np.uint32)
+        active = rng.random(k) < 0.9
+        carries.append((t(kk[0]), tuple(t(c) for c in kk[1:]), t(counts),
+                        torch.from_numpy(active)))
+    flat = torch.from_numpy(slots.reshape(-1).view(np.int32))
+    return flat, s, carries, r_start, min(width2, *(
+        c[3].numel() for c in carries)), max_reprobes
+
+
+def check_residue(lib, case, seed: int = 0) -> None:
+    """Both carries of a case through the emulated kernel and through the
+    plain rounds, from one state: every slot word, n, spilled, the probe
+    histogram and the rounds run must be equal after each."""
+    slots, s, carries, r_start, width2, max_reprobes = residue_case(case,
+                                                                    seed)
+    hist0 = torch.arange(max_reprobes, dtype=torch.int64) * 3
+    got = [slots.clone(), torch.tensor(5), torch.tensor(7), hist0.clone()]
+    want = [slots.clone(), torch.tensor(5), torch.tensor(7), hist0.clone()]
+    for pos0, cleared, counts, active in carries:
+        outs = [torch.empty_like(t) for t in got[1:]]
+        rounds = torch.tensor(11)
+        # stale scratch: the kernel must not read what it did not write
+        masks = torch.full((lib.tsx_table_residue_scratch_words(width2),),
+                           -1, dtype=torch.int64)
+        assert lib.tsx_table_residue(
+            got[0].data_ptr(), s, len(cleared), pos0.data_ptr(),
+            _build.ptr_array(cleared), counts.data_ptr(), active.data_ptr(),
+            active.numel(), width2, r_start, max_reprobes, got[1].data_ptr(),
+            got[2].data_ptr(), got[3].data_ptr(), max_reprobes,
+            *(o.data_ptr() for o in outs), rounds.data_ptr(),
+            masks.data_ptr(), masks.numel(), None) == 0
+        got[1:] = outs
+        n, spilled, hist, n_rounds = table_residue_plain(
+            want[0], s, (pos0, cleared, counts, active), r_start, width2,
+            max_reprobes, *want[1:])
+        want[1:] = n, spilled, hist
+        for name, g, w in zip(("slots", "n", "spilled", "probe_hist"), got,
+                              want):
+            assert torch.equal(g, w), ("table_residue", case[0], name)
+        assert int(rounds) == 11 + n_rounds, ("table_residue", case[0],
+                                              "rounds")
 
 
 def main() -> int:
@@ -403,6 +511,10 @@ def main() -> int:
             want = lane_mix_plain(cols, mix, inverse)
             assert all(map(torch.equal, out, want)), ("lane_mix", k, inverse)
     print("lane_mix: ok")
+
+    for case in RESIDUE_CASES:
+        check_residue(lib, case)
+    print("table_residue: ok")
     return 0
 
 

@@ -48,6 +48,17 @@ Medians of CUDA-event-timed calls (`*_ms`, the card's time), and for
 kernels 5 and 1 also the host's time per wrapper call (`*_host_us`,
 perf_counter over back-to-back calls with no device sleep ahead of them:
 what the Python side of a wrapper costs on a host-bound path).
+
+    python3 tools/port_profile.py --residue
+
+instead times the table's residue phase (ops/table_residue.py) in the
+k = 14, l = 26 table with a fifth of its slots used, from round 3, at
+widths 2^10 to 2^18 with 70 % of the rows active: the kernel
+(`table_residue`) against the plain rounds (`table_residue_plain`), each
+as the wall of one call and its synchronize (`*_wall_ms`, the host's
+clock: the plain rounds wait on the card every round), and the kernel's
+device time alone (`kernel_ms`, CUDA events); one JSON line a width,
+medians of 11 calls on fresh keys.
 """
 
 from __future__ import annotations
@@ -320,15 +331,76 @@ def wide_counts(out: Path) -> int:
     return 0
 
 
+def residue_timing() -> int:
+    sys.path.insert(0, str(REPO))
+    from tsxcount_tpu_torch import GF2Hash, KmerSpec, QuotientTable
+    from tsxcount_tpu_torch.ops.table_residue import (
+        table_residue,
+        table_residue_plain,
+    )
+
+    dev = torch.device("cuda")
+    spec = KmerSpec(14)
+    t = QuotientTable(spec, 26, GF2Hash(spec, seed=31836), device=dev)
+    st = t.init_state()
+    g = torch.Generator(device=dev).manual_seed(21)
+    used = torch.rand(t.slots, device=dev, generator=g) < 0.2
+    st.slots[: t.slots] = torch.randint(-2**31, 2**31, (t.slots,),
+                                        dtype=torch.int32, device=dev,
+                                        generator=g) & ~t._low_mask
+    t._col(st.slots, t.slot_cols - 1).copy_(used.to(torch.int32))
+    rounds = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def carry(w):
+        keys = torch.randint(0, 4**14, (w, 1), dtype=torch.int32, device=dev,
+                             generator=g)
+        pos0, cleared = t._hash_cols(keys)
+        counts = torch.ones(w, dtype=torch.int32, device=dev)
+        return (pos0, cleared, counts,
+                torch.arange(w, device=dev) < int(0.7 * w))
+
+    def wall_ms(fn, w):
+        out = []
+        for _ in range(11):
+            c = carry(w)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(c)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    for w in [1 << b for b in range(10, 19)]:
+        args = lambda c: (st.slots, t.slots, c, 3, w, t.max_reprobes, st.n,
+                          st.spilled, st.probe_hist)
+        plain_rounds = []
+        carries = iter([carry(w) for _ in range(22)])
+        line = dict(
+            width=w, active=int(0.7 * w),
+            kernel_wall_ms=wall_ms(lambda c: table_residue(*args(c), rounds),
+                                   w),
+            plain_wall_ms=wall_ms(lambda c: plain_rounds.append(
+                table_residue_plain(*args(c))[3]), w),
+            plain_rounds=float(np.median(plain_rounds)),
+            kernel_ms=median_ms(lambda: table_residue(*args(next(carries)),
+                                                      rounds)),
+            device=torch.cuda.get_device_name(0))
+        print(json.dumps(line), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     ap.add_argument("--ab", type=Path, default=None)
     ap.add_argument("--time-kernels", type=Path, default=None)
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--residue", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
+    if args.residue:
+        return residue_timing()
     if args.time_kernels is not None:
         print(json.dumps(time_kernels(args.time_kernels)))
         return 0

@@ -42,7 +42,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 MAX_COLS = 18  # kMaxCols of csrc/common.cuh: columns of one kernel call
 
 LAUNCHES = {"compact_flagged": 0, "merge_sorted": 0, "merge_dedupe_sorted": 0,
-            "apply_sorted_unique": 0, "gather_sorted": 0, "lane_mix": 0}
+            "apply_sorted_unique": 0, "gather_sorted": 0, "lane_mix": 0,
+            "table_residue": 0}
 
 # (kernel, sorted shape items) -> launches while a profiler ran
 _SHAPES: dict[tuple[str, tuple], int] = {}
@@ -71,6 +72,10 @@ _SIGNATURES = {
     "tsx_apply_sorted_unique": (_INT, [_P, _P, _INT, _I64, _P, _I64, _P]),
     "tsx_lane_mix": (_INT, [_P, _P, _INT, _I64, _INT, _U32, _U32, _U32, _U32,
                             _U32, _INT, _INT, _P]),
+    "tsx_table_residue_scratch_words": (_I64, [_I64]),
+    "tsx_table_residue": (_INT, [_P, _I64, _INT, _P, _P, _P, _P, _I64, _I64,
+                                 _I64, _I64, _P, _P, _P, _I64, _P, _P, _P, _P,
+                                 _P, _I64, _P]),
     "tsx_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -356,6 +356,7 @@ class BaseCounter:
                   device=str(self.device))
         st.update(self._own_stats())
         st.update(table_inserts=self.store.inserts,
+                  table_residue_launches=self.store.residue_launches,
                   table_rounds=self.store.rounds)
         return st
 

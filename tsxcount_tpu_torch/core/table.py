@@ -24,9 +24,11 @@ is in the slot matches, and an empty slot goes to the LAST contender of
 its run.  Kernel 4 then adds one combined row per resolved contender into
 every column, in one launch per round, and kernel 1 compacts the
 unresolved rows to a prefix whose size the host reads to size the next
-round.  The narrow tail of an insert (`residue_phase`) resolves in plain
-PyTorch, where the lowest original index wins an empty slot, as in the JAX
-package.
+round.  The narrow tail of an insert (`residue_phase`), where the lowest
+original index wins an empty slot as in the JAX package, runs every one of
+its rounds in one launch of ops/table_residue.py's kernel on a CUDA state,
+with no host sync; a CPU state takes the plain rounds, one host check a
+round.
 
 The widths of the rounds are the JAX package's host schedule
 (`insert_histogram`): the table, not the counter, decides them, and the
@@ -39,6 +41,11 @@ the table re-dedupes with their counts as weights first (`merge_runs`,
 The slot array is updated IN PLACE by every round, the tail and the
 renormalisation: a returned TableState shares the array of the state it
 was made from, which is no longer to be used.
+
+Host counts for a counter's stats: `inserts` (batch histograms), `rounds`
+(reprobe rounds: the split rounds and plain tail rounds the host counts,
+plus the kernel's tail rounds, which it adds into a device counter that
+`rounds` reads) and `residue_launches` (tails that took the kernel).
 """
 
 from __future__ import annotations
@@ -65,12 +72,18 @@ from tsxcount_tpu_torch.ops.count import (
     unpack_flag_key_cols,
 )
 from tsxcount_tpu_torch.ops.gf2 import GF2Hash
-from tsxcount_tpu_torch.ops.lanes import i32, u32
+from tsxcount_tpu_torch.ops.lanes import i32
+from tsxcount_tpu_torch.ops.table_residue import (
+    bump_hist,
+    table_residue,
+    table_residue_plain,
+    triangular,
+)
 from tsxcount_tpu_torch.utils.profiling import span
 
 DEAD = 1 << 30  # dst2 of inactive rows: even, past every doubled address
 REFERENCE_FIELDS = ("slots", "n", "spilled", "probe_hist")
-_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: one plain tail
+_RESIDUE_ELEMS = 1 << 18  # w * slot_cols at or below: the tail
 
 
 class TableState(NamedTuple):
@@ -78,10 +91,6 @@ class TableState(NamedTuple):
     n: torch.Tensor           # int64 0-d: distinct k-mers
     spilled: torch.Tensor     # int64 0-d: k-mers dropped after max reprobes
     probe_hist: torch.Tensor  # int64 [max_reprobes]: k-mers resolved at r
-
-
-def _triangular(r):
-    return (r * (r + 1)) // 2
 
 
 def _digit_counts(d0, d1, d2) -> torch.Tensor:
@@ -114,10 +123,11 @@ class QuotientTable(StoreBase):
         # the reference's bound is 2^L - 1 reprobes
         self.max_reprobes = min(max_reprobes, self.slots - 1)
         self._low_mask = (1 << l_bits) - 1
-        # host counts (an owner's stats): batch histograms inserted by
-        # insert_histogram, and reprobe rounds run (split and residue
-        # rounds); init_state restarts them
-        self.inserts = self.rounds = 0
+        # counts for an owner's stats (the module docstring); init_state
+        # restarts them
+        self.inserts = self.residue_launches = self._host_rounds = 0
+        self._kernel_rounds = torch.zeros((), dtype=torch.int64,
+                                          device=self.device)
         # flat doubled element destinations must fit int32
         if 2 * self.slots * self.slot_cols >= 2**31:
             raise ValueError(
@@ -132,9 +142,16 @@ class QuotientTable(StoreBase):
         """Columns of a slot: key lanes + digits + used."""
         return self.spec.lanes + COUNT_DIGITS + 1
 
+    @property
+    def rounds(self) -> int:
+        """Reprobe rounds run since init_state (a host read of the kernel's
+        device count)."""
+        return self._host_rounds + int(self._kernel_rounds)
+
     def init_state(self) -> TableState:
-        """An empty table; the host counts restart."""
-        self.inserts = self.rounds = 0
+        """An empty table; the counts restart."""
+        self.inserts = self.residue_launches = self._host_rounds = 0
+        self._kernel_rounds.zero_()
         dev = self.device
         return TableState(
             slots=torch.zeros(self.slot_cols * self.slots, dtype=torch.int32,
@@ -184,14 +201,6 @@ class QuotientTable(StoreBase):
         d2.copy_(i32(d2.to(torch.int64) + c1))  # wraps as the TPU's int32
         return state
 
-    def _bump_hist(self, hist: torch.Tensor, r: int, k: torch.Tensor
-                   ) -> torch.Tensor:
-        # a reprobe index past the histogram lands in its last bin, as the
-        # JAX package's clamped index does
-        hist = hist.clone()
-        hist[min(r, hist.shape[0] - 1)] += k
-        return hist
-
     # --- probe-state derivation --------------------------------------------
 
     def _hash_cols(self, ukeys: torch.Tensor):
@@ -220,13 +229,13 @@ class QuotientTable(StoreBase):
         cleared_c, counts_c, active_c), n_enter, n_left), the carry rows
         compacted so that the active ones are exactly the first n_left.
         """
-        self.rounds += 1
+        self._host_rounds += 1
         s = self.slots
         lanes = self.spec.lanes
         cols = self.slot_cols
         width = pos0.shape[0]
         dev = pos0.device
-        pos = (pos0.to(torch.int64) + _triangular(r)) % s
+        pos = (pos0.to(torch.int64) + triangular(r)) % s
         # inactive rows sort last; the sort is stable, as the layout needs
         ckey = torch.where(active, pos, s)
         ckey_s, perm = torch.sort(ckey, stable=True)
@@ -279,7 +288,7 @@ class QuotientTable(StoreBase):
             slots=state.slots,
             n=state.n + winner.sum(),
             spilled=spilled,
-            probe_hist=self._bump_hist(state.probe_hist, r, resolved.sum()),
+            probe_hist=bump_hist(state.probe_hist, r, resolved.sum()),
         )
 
         # compact the surviving rows to an exact prefix (kernel 1)
@@ -292,64 +301,24 @@ class QuotientTable(StoreBase):
 
     def residue_phase(self, state: TableState, carry, r_start: int,
                       width2: int) -> TableState:
-        """Finish an insert from the compacted carry at width `width2`
-        (plain gathers and scatters; an empty slot goes to the lowest
-        original index among its contenders), then renormalise.  Rows
+        """Finish an insert from the compacted carry (pos0, cleared lane
+        columns, counts, active) at width `width2`, then renormalise: the
+        rounds from r_start (ops/table_residue.py), where an empty slot
+        goes to the lowest original index among its contenders.  Rows
         active beyond width2 are counted spilled, which cannot happen when
-        width2 covers the round's n_left.  One host check per round."""
-        s = self.slots
-        lanes = self.spec.lanes
-        cols = self.slot_cols
-        pos0_f, cleared_f, counts_f, active_f = carry
-        lost = active_f.sum() - active_f[:width2].sum()
-        pos0 = pos0_f[:width2].to(torch.int64)
-        cleared = tuple(c[:width2] for c in cleared_f)
-        counts = counts_f[:width2]
-        d0 = counts & COUNT_DIGIT_MASK
-        d1 = (counts >> COUNT_DIGIT_BITS) & COUNT_DIGIT_MASK
-        zeros_w = torch.zeros_like(counts)
-        probe_cols = list(range(lanes)) + [cols - 1]
-        slots = state.slots
-        n, hist = state.n, state.probe_hist
-        unresolved = active_f[:width2].clone()
-        r = r_start
-        while r < self.max_reprobes:
-            with span("sync"):
-                if not bool(unresolved.any()):
-                    break
-            self.rounds += 1
-            pos = (pos0 + _triangular(r)) % s
-            slotkey0 = cleared[0] | r
-            g_cols = [slots[c * s + pos] for c in probe_cols]
-            used_g = g_cols[-1] != 0
-            key_eq = g_cols[0] == slotkey0
-            for j in range(1, lanes):
-                key_eq &= g_cols[j] == cleared[j]
-            match = unresolved & used_g & key_eq
-            empty = unresolved & ~used_g
-            ckey_s, perm = torch.sort(torch.where(empty, pos, s), stable=True)
-            first = torch.ones_like(empty)
-            first[1:] = ckey_s[1:] != ckey_s[:-1]
-            winner = torch.zeros_like(empty)
-            winner[perm] = first & (ckey_s < s)
-            upd = match | winner
-            val_cols = (
-                [torch.where(winner, slotkey0, 0)]
-                + [torch.where(winner, cleared[j], 0)
-                   for j in range(1, lanes)]
-                + [d0, d1, zeros_w, winner.to(torch.int32)]
-            )
-            p = pos[upd]
-            for c in range(cols):
-                e = c * s + p
-                slots[e] = i32(u32(slots[e]) + u32(val_cols[c][upd]))
-            n = n + winner.sum()
-            hist = self._bump_hist(hist, r, upd.sum())
-            unresolved &= ~upd
-            r += 1
-        spilled = state.spilled + lost + unresolved.sum()
-        return self.renorm(TableState(slots=slots, n=n, spilled=spilled,
-                                      probe_hist=hist))
+        width2 covers the round's n_left.  A CUDA state takes the kernel
+        (one launch, no host sync), a CPU state the plain rounds (one host
+        check a round)."""
+        args = (state.slots, self.slots, carry, r_start, width2,
+                self.max_reprobes, state.n, state.spilled, state.probe_hist)
+        if state.slots.is_cuda:
+            self.residue_launches += 1
+            n, spilled, hist = table_residue(*args, self._kernel_rounds)
+        else:
+            n, spilled, hist, rounds = table_residue_plain(*args)
+            self._host_rounds += rounds
+        return self.renorm(TableState(slots=state.slots, n=n,
+                                      spilled=spilled, probe_hist=hist))
 
     def insert_histogram(self, state: TableState, uc: UniqueCounts
                          ) -> TableState:
@@ -380,11 +349,12 @@ class QuotientTable(StoreBase):
             if f == 0:
                 return self.renorm(st)
             w = min(width, max(256, 1 << (f - 1).bit_length()))
+            # the carry's rows past n_left <= w are inactive: cut to w
+            p0, cl, c, a = carry
+            carry = (p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
             if w * self.slot_cols <= _RESIDUE_ELEMS or r >= 6:
                 return self.residue_phase(st, carry, r, w)
-            p0, cl, c, a = carry
-            st, carry, _, n_left = self.split_round(
-                st, r, p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
+            st, carry, _, n_left = self.split_round(st, r, *carry)
             r += 1
 
     merge_read = insert_histogram
@@ -421,10 +391,12 @@ class QuotientTable(StoreBase):
     def insert(self, state: TableState, ukeys: torch.Tensor,
                ucounts: torch.Tensor, uvalid: torch.Tensor) -> TableState:
         """Insert a deduplicated batch histogram (keys unique where uvalid)
-        through the plain rounds to completion.  The counters use the
-        host-driven split rounds instead (insert_histogram)."""
+        through the tail's rounds from round 0 at the batch's width
+        (residue_phase).  The counters use the host-driven split rounds
+        first (insert_histogram)."""
         pos0, cleared = self._hash_cols(ukeys)
-        carry = (pos0, cleared, ucounts.to(torch.int32), uvalid)
+        carry = (pos0, cleared, ucounts.to(torch.int32).contiguous(),
+                 uvalid.contiguous())
         return self.residue_phase(state, carry, 0, ukeys.shape[0])
 
     # --- queries -----------------------------------------------------------
@@ -443,7 +415,7 @@ class QuotientTable(StoreBase):
         found = torch.zeros_like(active)
         r = 0
         while r < self.max_reprobes and bool(active.any()):
-            pos = (pos0 + _triangular(r)) % s
+            pos = (pos0 + triangular(r)) % s
             used_g = state.slots[(cols - 1) * s + pos] != 0
             key_eq = state.slots[pos] == (cleared[0] | r)
             for j in range(1, lanes):
@@ -504,7 +476,7 @@ class QuotientTable(StoreBase):
         (i - r(r+1)/2) mod 2^L."""
         key0 = self._col(state.slots, 0)[slot_idx]
         r = (key0 & self._low_mask).to(torch.int64)
-        missing = (slot_idx - _triangular(r)) % self.slots
+        missing = (slot_idx - triangular(r)) % self.slots
         hashed = torch.stack(
             [(key0 & ~self._low_mask) | missing.to(torch.int32)]
             + [self._col(state.slots, j)[slot_idx]
