@@ -669,13 +669,16 @@ def test_gf2_routing_one_shard_on_card_matches_cpu(dev, backend):
     assert got[0] == got[1] and len(got[0][0]) > 1000
 
 
-@pytest.mark.parametrize("kernel", ["lane_mix", "merge_dedupe_sorted"])
+@pytest.mark.parametrize("kernel", ["lane_mix", "merge_dedupe_sorted",
+                                    "gather_sorted", "apply_sorted_unique"])
 def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
                                                              kernel):
-    """One lane-mix launch at 2^24 positions of 8 lanes, or one kernel-3
-    launch at 8 key words, under a profiler: the launch table holds its
-    shape, and the benchmark's reader gives a share in (0, 100] % from the
-    trace."""
+    """One lane-mix launch at 2^24 positions of 8 lanes, one kernel-3
+    launch at 8 key words, or one launch of kernel 5 (17 columns) or 4 (19
+    columns) at the wide table's round of 2^24 sorted destinations, 68 %
+    live, on 2^26-word columns, under a profiler: the launch table holds
+    its shape, and the benchmark's reader gives a share in (0, 100] % from
+    the trace."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from portbench import run
@@ -694,7 +697,7 @@ def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
         call = lambda: lane_mix(cols, mix)
         shape = dict(positions=1 << 24, lanes=8, input_bytes=8 << 26)
         metric = "kernels.lane_mix.roofline_pct"
-    else:
+    elif kernel == "merge_dedupe_sorted":
         def run_of(rows, step):  # distinct first words: ascending keys
             first = torch.arange(rows, dtype=torch.int32, device=dev) * step
             rest = [torch.randint(-2**31, 2**31, (rows,), dtype=torch.int32,
@@ -705,6 +708,23 @@ def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
         call = lambda: merge_dedupe_sorted(a, b, 8, INV_MIN)
         shape = dict(m=1 << 24, n=1 << 23, n_keys=8)
         metric = "kernels.merge_dedupe.roofline_pct"
+    else:
+        n_cols = 17 if kernel == "gather_sorted" else 19
+        slots = [torch.zeros(1 << 26, dtype=torch.int32, device=dev)
+                 for _ in range(n_cols)]
+        # ascending distinct slots, two thirds of them live (odd)
+        addr = torch.arange(1 << 24, dtype=torch.int32, device=dev) * 4
+        live = torch.rand(1 << 24, device=dev, generator=g) < 0.68
+        dst2 = (addr << 1) | live.to(torch.int32)
+        if kernel == "gather_sorted":
+            call = lambda: gather_sorted(slots, dst2)
+            metric = "kernels.table_gather.roofline_pct"
+        else:
+            vals = [torch.ones(1 << 24, dtype=torch.int32, device=dev)
+                    for _ in range(n_cols)]
+            call = lambda: apply_sorted_unique(slots, dst2, vals)
+            metric = "kernels.table_apply.roofline_pct"
+        shape = dict(elements=1 << 24, cols=n_cols)
     call()  # built and warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -720,25 +740,40 @@ def test_a_traced_launch_records_its_shape_and_roofline_share(dev, monkeypatch,
     assert share is not None and 0 < share <= 100, share
 
 
-def _table_k14(dev, l_bits=26):
-    """The table of the benchmark's table-k14 configuration: k = 14, its
-    hash seed and 64 reprobes, here at 2^l_bits slots."""
+def _cell_table(dev, k=14, l_bits=26):
+    """The table of the benchmark's table-k14 (or table-k256) configuration:
+    its k, the hash seed and 64 reprobes, here at 2^l_bits slots."""
     from tsxcount_tpu_torch import GF2Hash, QuotientTable
 
-    spec = KmerSpec(14)
+    spec = KmerSpec(k)
     return QuotientTable(spec, l_bits, GF2Hash(spec, seed=31836),
                          max_reprobes=64, device=dev)
 
 
+def _key_rows(dev, k: int, idx: np.ndarray) -> torch.Tensor:
+    """Distinct keys for distinct indices below 12M: at k = 14 the index
+    times 22 (a 14-mer); at k = 256 row `idx` of a seeded pool of 12M
+    random 16-lane keys (any 512 bits are a 256-mer)."""
+    if k == 14:
+        return _t(idx.astype(np.int32)[:, None] * 22, dev)
+    g = torch.Generator(device=dev).manual_seed(256)
+    pool = torch.randint(-2**31, 2**31, (12_000_000, KmerSpec(k).lanes),
+                         dtype=torch.int32, device=dev, generator=g)
+    return pool[_t(idx, dev)]
+
+
+@pytest.mark.parametrize("k", [14, 256])
 def test_residue_kernel_matches_plain_rounds_at_the_cells_shape(dev,
-                                                                monkeypatch):
-    """table-k14's 2^26-slot table fed two synth-long-like batch histograms
-    (2^24 positions, ~9.4M valid windows drawn from 12M keys, a polyA key
-    counted past 2^20; the second batch repeats most of the first's keys)
-    through insert_histogram's whole schedule, once with the residue phase
-    in the kernel and once in the plain rounds (table_residue_plain in the
-    kernel wrapper's place): the two states word for word, and the same
-    rounds run."""
+                                                                monkeypatch,
+                                                                k):
+    """table-k14's (and table-k256's, 16 key lanes and 20 columns)
+    2^26-slot table fed two synth-long-like batch histograms (2^24
+    positions, ~9.4M valid windows drawn from 12M keys, a polyA key counted
+    past 2^20; the second batch repeats most of the first's keys) through
+    insert_histogram's whole schedule, once with the residue phase in the
+    kernel and once in the plain rounds (table_residue_plain in the kernel
+    wrapper's place): the two states word for word, and the same rounds
+    run."""
     from tsxcount_tpu_torch import _build
     from tsxcount_tpu_torch.core import table as table_mod
     from tsxcount_tpu_torch.ops.count import count_unique
@@ -749,22 +784,23 @@ def test_residue_kernel_matches_plain_rounds_at_the_cells_shape(dev,
         args[-1].add_(k)
         return tuple(out)
 
-    spec = KmerSpec(14)
+    spec = KmerSpec(k)
     rng = np.random.default_rng(21)
     n_pos, n_valid = 1 << 24, 9_400_000
     hists = []
     for _ in range(2):
-        keys = rng.integers(0, 12_000_000, n_pos) * 22  # distinct 14-mers
-        keys[rng.random(n_pos) < 0.12] = 0  # the polyA tails
+        idx = rng.integers(0, 12_000_000, n_pos)
+        keys = _key_rows(dev, k, idx)
+        keys[_t(rng.random(n_pos) < 0.12, dev)] = 0  # the polyA tails
         valid = np.arange(n_pos) < n_valid
-        hists.append(count_unique(_t(keys.astype(np.int32)[:, None], dev),
-                                  _t(valid, dev), spec))
+        hists.append(count_unique(keys, _t(valid, dev), spec))
+        del keys
     out = []
     for kernel in (True, False):
         if not kernel:
             monkeypatch.setattr(table_mod, "table_residue", plain_rounds)
         _build.reset_launch_counts()
-        t = _table_k14(dev)
+        t = _cell_table(dev, k=k)
         st = t.init_state()
         for uc in hists:
             st = t.insert_histogram(st, uc)
@@ -790,7 +826,7 @@ def test_residue_phase_makes_one_launch_and_no_host_sync(dev, width):
     from tsxcount_tpu_torch.core.table import TableState
     from tsxcount_tpu_torch.ops.table_residue import table_residue_plain
 
-    t = _table_k14(dev, l_bits=20)
+    t = _cell_table(dev, l_bits=20)
     rng = np.random.default_rng(5)
     keys = np.unique(rng.integers(0, 4**14, width + width // 10))[:width]
     keys = _t(rng.permutation(keys).astype(np.int32)[:, None], dev)
@@ -817,3 +853,29 @@ def test_residue_phase_makes_one_launch_and_no_host_sync(dev, width):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got.n) == width and int(got.spilled) == 0
+
+
+def test_table_k256_configuration_counts_on_card_like_the_reference(
+        dev, tmp_path):
+    """The benchmark's table-k256 configuration as the file gives it (2^26
+    slots of 20 columns, 2^20-word batches) counts 2,000 synth-long reads
+    on the card exactly as the benchmark's plain reference does: every
+    tail in the 16-lane residue kernel, nothing spilled."""
+    from portbench import reference, run, traffic
+    from tsxcount_tpu_torch.parallel.sharded import ShardedKmerCounter
+
+    cfg = run.load_config("table-k256")
+    counter = ShardedKmerCounter(device=dev, **cfg["counter"])
+    assert (counter.spec.lanes, counter.table.slot_cols) == (16, 20)
+    mix = dict(run.load_traffic("synth-long"), reads=2000)
+    path = str(tmp_path / "reads.fastq")
+    traffic.write_fastq(mix, 2**31 + 256, path)
+    counter.count_file(path)
+    want = reference.reference_count(path, 256)
+    assert counter.distinct == want[0].shape[0]
+    check = reference.compare(want, run.export(counter, 256))
+    assert len(check) >= 5 and set(check.values()) == {0}, check
+    st = counter.stats()
+    assert st["table_residue_launches"] == st["table_inserts"] >= 1
+    assert 1 <= st["table_split_rounds"] < st["table_rounds"]
+    assert counter.table.state_stats(counter.state)["spilled"] == 0

@@ -251,8 +251,17 @@ def test_constructor_checks():
         QuotientTable(spec, 0, GF2Hash(spec), device="cpu")
     with pytest.raises(ValueError, match="func field"):
         QuotientTable(KmerSpec(4), 8, GF2Hash(KmerSpec(4)), device="cpu")
-    with pytest.raises(ValueError, match="int32 element-address"):
-        QuotientTable(KmerSpec(127), 27, GF2Hash(KmerSpec(127)),
+    # the port's kernels take one region a column and a doubled SLOT
+    # address: the JAX package's cap on 2^L x columns is not the port's,
+    # so its widest key holds the upstream's 2^26 slots (no slot array is
+    # made here)
+    with pytest.raises(ValueError, match="doubled slot address"):
+        QuotientTable(KmerSpec(31), 30, GF2Hash(KmerSpec(31)),
                       device="cpu")
+    for k, l_bits in ((127, 27), (256, 26), (256, 29)):
+        wide = QuotientTable(KmerSpec(k), l_bits,
+                             GF2Hash(KmerSpec(k), identity=True),
+                             device="cpu")
+        assert wide.slots == 1 << l_bits
     table = QuotientTable(spec, 3, GF2Hash(spec), device="cpu")
     assert table.max_reprobes == 7 and table.device.type == "cpu"

@@ -357,7 +357,8 @@ class BaseCounter:
         st.update(self._own_stats())
         st.update(table_inserts=self.store.inserts,
                   table_residue_launches=self.store.residue_launches,
-                  table_rounds=self.store.rounds)
+                  table_rounds=self.store.rounds,
+                  table_split_rounds=self.store.split_rounds)
         return st
 
     def print_stats(self) -> None:

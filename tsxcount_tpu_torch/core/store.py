@@ -33,9 +33,9 @@ backend once, when it builds the store, and then calls:
   * `counts_of(state, queries)`: int64 counts on the device, 0 if absent;
   * `export`, `to_host`, `state_to_reference`, `state_from_reference`
     (`reference_fields`: the JAX state's fields a checkpoint holds);
-  * `inserts`, `residue_launches`, `rounds`, `max_reprobes` and
-    `state_stats(state)`: the table's values in a counter's stats and
-    checkpoint, 0 and empty here.
+  * `inserts`, `residue_launches`, `rounds`, `split_rounds`,
+    `max_reprobes` and `state_stats(state)`: the table's values in a
+    counter's stats and checkpoint, 0 and empty here.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class StoreBase:
 
     reference_fields = REFERENCE_FIELDS
     FULL = "distinct kmers exceeded the capacity"
-    inserts = residue_launches = rounds = max_reprobes = 0
+    inserts = residue_launches = rounds = split_rounds = max_reprobes = 0
 
     def read_state(self, state):
         return state

@@ -45,7 +45,10 @@ was made from, which is no longer to be used.
 Host counts for a counter's stats: `inserts` (batch histograms), `rounds`
 (reprobe rounds: the split rounds and plain tail rounds the host counts,
 plus the kernel's tail rounds, which it adds into a device counter that
-`rounds` reads) and `residue_launches` (tails that took the kernel).
+`rounds` reads), `split_rounds` (the split rounds alone) and
+`residue_launches` (tails that took the kernel).  While a torch profiler
+runs, each split round of `insert_histogram` is a `table_split` span
+(utils/profiling.py), nested in the counter's `fold`.
 """
 
 from __future__ import annotations
@@ -126,15 +129,17 @@ class QuotientTable(StoreBase):
         # counts for an owner's stats (the module docstring); init_state
         # restarts them
         self.inserts = self.residue_launches = self._host_rounds = 0
+        self.split_rounds = 0
         self._kernel_rounds = torch.zeros((), dtype=torch.int64,
                                           device=self.device)
-        # flat doubled element destinations must fit int32
-        if 2 * self.slots * self.slot_cols >= 2**31:
+        # kernels 4 and 5 take a round's columns as separate regions and
+        # an int32 doubled SLOT address, which must stay below DEAD (the
+        # JAX package's flat element addresses cap 2^L x columns, which
+        # refuses the upstream's 2^26 slots at k = 256)
+        if 2 * self.slots > DEAD:
             raise ValueError(
-                f"table too large: 2^{l_bits} slots x {self.slot_cols} "
-                f"columns exceeds the int32 element-address space (the "
-                f"slot array alone would be "
-                f"{self.slots * self.slot_cols * 4 / 2**30:.1f} GiB)"
+                f"table too large: 2^{l_bits} slots exceed the int32 "
+                f"doubled slot address (at most 2^29 slots)"
             )
 
     @property
@@ -151,6 +156,7 @@ class QuotientTable(StoreBase):
     def init_state(self) -> TableState:
         """An empty table; the counts restart."""
         self.inserts = self.residue_launches = self._host_rounds = 0
+        self.split_rounds = 0
         self._kernel_rounds.zero_()
         dev = self.device
         return TableState(
@@ -230,6 +236,7 @@ class QuotientTable(StoreBase):
         compacted so that the active ones are exactly the first n_left.
         """
         self._host_rounds += 1
+        self.split_rounds += 1
         s = self.slots
         lanes = self.spec.lanes
         cols = self.slot_cols
@@ -329,7 +336,8 @@ class QuotientTable(StoreBase):
         each later round at the next power of two >= the rows left (at
         least 256); the plain tail once w * slot_cols <= 2^18 or from
         round 6 on.  One host read of the distinct count and one of each
-        round's rows left."""
+        round's rows left, each a `sync` span; each split round a
+        `table_split` span."""
         self.inserts += 1
         p = uc.keys.shape[0]
         with span("sync"):
@@ -339,9 +347,10 @@ class QuotientTable(StoreBase):
             if 256 <= w and n <= w:
                 width = w
                 break
-        st, carry, _, n_left = self.split_round(
-            state, 0, *self.round0_args(
-                uc.keys[:width], uc.counts[:width], uc.valid[:width]))
+        with span("table_split"):  # round 0 with its keys' hash
+            st, carry, _, n_left = self.split_round(
+                state, 0, *self.round0_args(
+                    uc.keys[:width], uc.counts[:width], uc.valid[:width]))
         r = 1
         while True:
             with span("sync"):
@@ -354,7 +363,8 @@ class QuotientTable(StoreBase):
             carry = (p0[:w], tuple(x[:w] for x in cl), c[:w], a[:w])
             if w * self.slot_cols <= _RESIDUE_ELEMS or r >= 6:
                 return self.residue_phase(st, carry, r, w)
-            st, carry, _, n_left = self.split_round(st, r, *carry)
+            with span("table_split"):
+                st, carry, _, n_left = self.split_round(st, r, *carry)
             r += 1
 
     merge_read = insert_histogram
